@@ -1,0 +1,277 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Needs a CUDA card, nvcc and this repository's dmsa_lidar_slam_tpu_torch
+package beside this script; it exits non-zero otherwise.  Phases, each
+printed on its own lines and none of them caught:
+
+  1. the card's name and power limit (nvidia-smi), then the build of the
+     hand-written kernels (csrc/*.cu -> build/kernels/) and its wall time;
+  2. each kernel K1-K4 against its plain PyTorch version on the card, on the
+     same inputs at the main path's shapes, with the stated tolerance, and
+     both times from CUDA events;
+  3. FusedDmsaSlam on bench_sequence(3) with bench_config(): 50 scans of
+     20,000 points.  Launch counters are zeroed just before and read just
+     after; every kernel must have run, kf_count >= 3, max_submap_span > 0
+     and the trajectory ATE against the analytic truth <= 0.03 m.
+
+The line before the last is a JSON object with one entry per kernel and
+shape; the last line is {"ok": true, "device": {...}}.  Any failed check
+raises, so a failing run prints no result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+ATE_GATE_M = 0.03
+N_SCANS = 50
+PTS_PER_SCAN = 20000
+
+
+def _timed(fn, reps):
+    """Mean ms per call from CUDA events, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _scene_problem(rng, n, dtab, device):
+    """Points on the synthetic room's surfaces, spread over a pose table:
+    world = quat_rotate(q[tidx], xs) + t[tidx] exactly as the kernels read it."""
+    import numpy as np
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.core import rotations as rot
+    from dmsa_lidar_slam_tpu_torch.io.synthetic import sample_scene_points
+
+    world = sample_scene_points(rng, n) + 0.01 * rng.standard_normal((n, 3))
+    tidx = rng.integers(0, dtab - 1, size=n)
+    tidx[:: 9] = dtab - 1  # static points on the identity row
+    aa = 0.1 * rng.standard_normal((dtab - 1, 3))
+    q = rot.axang2quat(torch.as_tensor(aa)).numpy()
+    t = 0.5 * rng.standard_normal((dtab - 1, 3))
+    tab = np.zeros((dtab, 8))
+    tab[:-1, 0:4], tab[:-1, 4:7] = q, t
+    tab[-1, 0] = 1.0
+    tab_t = torch.as_tensor(tab, dtype=torch.float32, device=device)
+    w_t = torch.as_tensor(world, dtype=torch.float32, device=device)
+    ti = torch.as_tensor(tidx, device=device)
+    qi = tab_t[ti, 0:4]
+    qinv = torch.cat([qi[:, :1], -qi[:, 1:]], dim=1)
+    xs = rot.quat_rotate(qinv, w_t - tab_t[ti, 4:7])
+    mask = torch.as_tensor(rng.uniform(size=n) > 0.05, device=device)
+    rings = torch.as_tensor(rng.integers(0, 16, size=n), dtype=torch.int32, device=device)
+    pts = rot.quat_rotate(tab_t[ti, 0:4], xs) + tab_t[ti, 4:7]
+    return pts, mask, rings, xs, ti, tab_t
+
+
+def kernel_checks(device):
+    import numpy as np
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
+    from dmsa_lidar_slam_tpu_torch.ops import nn_bruteforce as nb
+
+    rng = np.random.default_rng(0)
+    results = []
+
+    def record(name, src, replaces, err, tol, ms, plain_ms, shape):
+        ok = bool(err <= tol)
+        print(f"  {name:13s} {shape:34s} max_abs_err={err:.3e} tol={tol:.3e} "
+              f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms {'ok' if ok else 'FAIL'}", flush=True)
+        assert ok, f"{name} at {shape}: error {err} above tolerance {tol}"
+        results.append(dict(name=f"{name} {shape}", route="cuda", source=src, replaces=replaces,
+                            max_abs_err=float(err), tolerance=float(tol), ms=float(ms), plain_ms=float(plain_ms)))
+
+    packs = {}
+    # K1 at the window (2 x 28,672 over the 502-row dense table) and the
+    # 100-keyframe ring (409,600 points over 101 keyframe rows)
+    for n, dtab, grid in ((28672, 502, 0.6), (409600, 101, 0.6)):
+        pts, mask, rings, xs, ti, tab = _scene_problem(rng, n, dtab, device)
+        builds = []
+        for g in (grid, 2.5 * grid):
+            args = (pts, mask, rings, xs, ti, g, 10, tab)
+            pk, nv, nr = fr.build_packed(*args)
+            pk_r, nv_r, nr_r = fr.build_packed_ref(*args)
+            torch.cuda.synchronize()
+            assert int(nv) == int(nv_r) and int(nr) == int(nr_r), (int(nv), int(nv_r), int(nr), int(nr_r))
+            exact = torch.equal(pk[12:15], pk_r[12:15]) and torch.equal(pk[0:3], pk_r[0:3])
+            assert exact, "K1: xs / w / tidx / run-start rows must match exactly"
+            sel = pk_r[6:12].abs().sum(0) > 0
+            assert float((pk[15] - pk_r[15]).abs().max()) <= 1e-6, "K1: 1/count rows differ"
+            mu_err = float((pk[3:6][:, sel] - pk_r[3:6][:, sel]).abs().max())
+            assert mu_err <= 2e-4, f"K1: cell means differ by {mu_err} m"
+            # lamw6: f32 moments in another order (about the run's first
+            # member vs two-pass), amplified by the eigenvalue floor; relative
+            # to the lamw6 scale, as the reference's kernel test
+            scale = float(pk_r[6:12][:, sel].abs().max())
+            err = float((pk[6:12][:, sel] - pk_r[6:12][:, sel]).abs().max()) / scale
+            builds.append((pk, err))
+        ms = _timed(lambda: fr.build_packed(*args), 10)
+        plain_ms = _timed(lambda: fr.build_packed_ref(*args), 3)
+        record("build_packed", "dmsa_lidar_slam_tpu_torch/csrc/k1_build.cu",
+               "dmsa_lidar_slam_tpu/ops/fused_residuals.py:875", max(e for _, e in builds), 2e-2,
+               ms, plain_ms, f"n={n}")
+        packs[n] = (torch.cat([b[0] for b in builds], dim=1), tab)
+
+    # K2 at the window (P=30, M=57,344) and the 100-keyframe submap
+    # (P=594, M=819,200); K3 at K=15 candidates on both
+    for n, p_dim in ((28672, 30), (409600, 594)):
+        packed, tab = packs[n]
+        m = packed.shape[1]
+        dtabs = 0.1 * torch.randn(p_dim, tab.shape[0], 8, device=device,
+                                  generator=torch.Generator(device=device).manual_seed(1))
+        dtabs[:, -1, :] = 0.0
+        max_cells = m // 10 + 2
+        h = fr.gn_system(tab, dtabs, packed, max_cells=max_cells)
+        h_r = fr.gn_system_ref(tab, dtabs, packed, include_mean_term=False)
+        torch.cuda.synchronize()
+        # f32 sums over ~1e4-1e5 cells in another order
+        err = float((h - h_r).abs().max()) / float(h_r.abs().max())
+        ms = _timed(lambda: fr.gn_system(tab, dtabs, packed, max_cells=max_cells), 5)
+        plain_ms = _timed(lambda: fr.gn_system_ref(tab, dtabs, packed, include_mean_term=False), 2)
+        record("gn_system", "dmsa_lidar_slam_tpu_torch/csrc/k2_gn.cu",
+               "dmsa_lidar_slam_tpu/ops/fused_residuals.py:426", err, 1e-3, ms, plain_ms,
+               f"P={p_dim} M={m}")
+
+        tabs = []
+        for k in range(15):
+            tk = tab.clone()
+            tk[:-1, 4:7] += 0.002 * k * torch.randn(tab.shape[0] - 1, 3, device=device,
+                                                     generator=torch.Generator(device=device).manual_seed(10 + k))
+            tabs.append(tk)
+        tabs = torch.stack(tabs)
+        e = fr.cand_errors(tabs, packed)
+        e_r = fr.cand_errors_ref(tabs, packed)
+        torch.cuda.synchronize()
+        # candidate errors are compared with each other: f32-class sums,
+        # relative to each candidate's value
+        err = float(((e - e_r).abs() / e_r.abs().clamp(min=1e-30)).max())
+        ms = _timed(lambda: fr.cand_errors(tabs, packed), 10)
+        plain_ms = _timed(lambda: fr.cand_errors_ref(tabs, packed), 3)
+        record("cand_errors", "dmsa_lidar_slam_tpu_torch/csrc/k3_cand.cu",
+               "dmsa_lidar_slam_tpu/ops/fused_residuals.py:313", err, 2e-4, ms, plain_ms,
+               f"K=15 Dtab={tab.shape[0]} M={m}")
+
+    # K4 at the two static-point queries of a bench scan
+    for n_ref, n_q in ((20480, 12288), (8192, 20480)):
+        ref = torch.as_tensor(30 * rng.uniform(-1, 1, (n_ref, 3)), dtype=torch.float32, device=device)
+        q = torch.as_tensor(30 * rng.uniform(-1, 1, (n_q, 3)), dtype=torch.float32, device=device)
+        rv = torch.as_tensor(rng.uniform(size=n_ref) > 0.1, device=device)
+        qv = torch.as_tensor(rng.uniform(size=n_q) > 0.1, device=device)
+        d = nb.min_sq_dist(ref, rv, q, qv)
+        d_r = nb.min_sq_dist_ref(ref, rv, q, qv)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(d_r)
+        assert torch.equal(fin, torch.isfinite(d)), "K4: +inf pattern differs"
+        # same f32 difference-of-coordinates formula, another rounding order
+        err = float(((d - d_r)[fin].abs() / d_r[fin].clamp(min=1.0)).max())
+        ms = _timed(lambda: nb.min_sq_dist(ref, rv, q, qv), 20)
+        plain_ms = _timed(lambda: nb.min_sq_dist_ref(ref, rv, q, qv), 3)
+        record("min_sq_dist", "dmsa_lidar_slam_tpu_torch/csrc/k4_nn.cu",
+               "dmsa_lidar_slam_tpu/ops/nn_bruteforce.py:86", err, 1e-5, ms, plain_ms,
+               f"refs={n_ref} queries={n_q}")
+    return results
+
+
+def pipeline_run(device):
+    import numpy as np
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.io.synthetic import ate_rmse, bench_config, bench_sequence
+    from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
+    from dmsa_lidar_slam_tpu_torch.pipeline.fused import FusedDmsaSlam
+
+    seq = bench_sequence(3)
+    data = []
+    t_imu = seq.t_start - 0.2
+    for i in range(N_SCANS):
+        t_end = seq.t_start + (i + 1) * seq.sweep
+        ts, acc, gyr = seq.imu_samples(t_imu, t_end)
+        data.append((*seq.scan(i, PTS_PER_SCAN, n_rings=16), ts, acc, gyr))
+        t_imu = t_end
+
+    slam = FusedDmsaSlam(bench_config(), flush_every=20, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    walls = []
+    for pts, stamps, rings, ts, acc, gyr in data:
+        t0 = time.perf_counter()
+        slam.process_imu_batch(acc, gyr, ts)
+        slam.process_scan(pts, stamps, rings)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = dict(cuda_lib.LAUNCHES)
+    st, tr, _ = slam.all_poses()
+    ate = ate_rmse(st, tr, seq)
+    timed = sum(walls[10:])
+    out = dict(
+        launches=launches,
+        kf_count=slam.kf_count,
+        max_submap_span=slam.max_submap_span,
+        ate_m=ate,
+        wall_ms_per_scan_all=1000.0 * sum(walls) / len(walls),
+        wall_ms_per_scan_10_50=1000.0 * timed / (N_SCANS - 10),
+        data_s_per_wall_s_10_50=(N_SCANS - 10) * seq.sweep / timed,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    print("  pipeline " + json.dumps(out), flush=True)
+    events = slam.state.events.cpu().numpy()
+    assert all(np.isfinite(events).ravel()), "non-finite event row"
+    for k, v in launches.items():
+        assert v > 0, f"kernel {k} never launched on the main path"
+    assert slam.kf_count >= 3, slam.kf_count
+    assert slam.max_submap_span > 0, slam.max_submap_span
+    assert ate <= ATE_GATE_M, f"ATE {ate} above {ATE_GATE_M}"
+    return launches
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+
+    from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
+
+    t0 = time.perf_counter()
+    cuda_lib.library()
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc {cuda_lib.BUILD_SECONDS} s) "
+          f"-> {cuda_lib.library_path()}", flush=True)
+
+    print("kernels vs plain versions:", flush=True)
+    results = kernel_checks(device)
+    print("main path:", flush=True)
+    launches = pipeline_run(device)
+    for r in results:
+        r["launches"] = launches[r["name"].split()[0]]
+    print(json.dumps({"kernels": results}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

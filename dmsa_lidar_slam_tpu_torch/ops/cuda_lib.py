@@ -1,0 +1,136 @@
+"""Build, load and count the hand-written CUDA kernels of csrc/.
+
+The sources are compiled at first use with nvcc for sm_90a into one shared
+library with a plain C interface under build/kernels/ (named by a hash of
+the sources and flags, so a change rebuilds and an unchanged tree reuses
+the library), and loaded with ctypes.  Every C entry point returns
+cudaGetLastError(); `check` raises if it is not 0.
+
+Nothing here runs at import time: importing the package needs neither
+nvcc nor a card.  Each kernel wrapper adds one to LAUNCHES[name] where it
+launches its kernel, and nowhere else.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+]
+
+LAUNCHES = {"build_packed": 0, "gn_system": 0, "cand_errors": 0, "min_sq_dist": 0}
+BUILD_SECONDS = None  # wall time of the last nvcc build (None: none ran)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # tab, dtab, kin, n, min_points, floor, packed, endw, stream
+    "k1_build_fwd": [_P, _I, _P, _I, _I, _F, _P, _P, _P],
+    # endw, n, packed, stats, nvalid, stream
+    "k1_build_finish": [_P, _I, _P, _P, _P, _P],
+    # tab, jt, P, packed, m, seg_of, first_sid, vid, stage_u, stage_s, jrows, rmax, stream
+    "k2_gn_rows": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P],
+    # jrows, nrows, P1, splits, partial, hext, stream
+    "k2_gn_jtj": [_P, _P, _I, _I, _P, _P, _P],
+    # tabs, K, dtab, packed, m, partial, out, stream
+    "k3_cand_errors": [_P, _I, _I, _P, _I, _P, _P, _P],
+    # ref, rvalid, n, q, qvalid, nq, out, stream
+    "k4_min_sq_dist": [_P, _P, _I, _P, _P, _I, _P, _P],
+}
+
+_lib = None
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc():
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return path
+
+
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu")), sorted(SRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libdmsa_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the hashed library if it is not there yet."""
+    global BUILD_SECONDS
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", tmp, *map(str, cu)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, so)
+    BUILD_SECONDS = time.perf_counter() - t0
+    return so
+
+
+def library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def stream_ptr(device):
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def require(t, name, dtype, shape=None, device=None):
+    """Check a kernel operand: CUDA, dtype, contiguity, optional shape."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")

@@ -1,0 +1,162 @@
+"""The port's kernel wrappers K1-K4 (csrc/*.cu) and their plain versions.
+
+This file imports neither jax nor the reference package, so it also runs on
+a machine that has a CUDA card and no jax:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+
+(--noconftest: tests/conftest.py pins jax to the CPU.)  The tests marked
+`gpu` hold each kernel against its plain version on the same inputs on the
+card, with chip_smoke.py's tolerances, and skip without a card.  The
+others run on the CPU: a wrapper given CPU tensors returns its plain
+version's result and launches nothing, and K2's host-side cut of the cells
+into segments is checked against the packed rows.
+
+Tolerances: K1's structural rows (local points, validity, table index, run
+starts, 1/count) are exact; cell means to 2e-4 m and lamw6 to 2% of its
+scale (moments about the run's first member against the plain two-pass
+moments, amplified by the floored inverse: the reference's own kernel test
+grants the same); K2 to 1e-3 relative (f32 sums over cells in another
+order); K3 to 2e-4 relative (f32-class sums, compared with each other by
+the line search); K4 to 1e-6 relative (the same f32 formula).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dmsa_lidar_slam_tpu_torch.core import rotations as rot
+from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
+from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
+from dmsa_lidar_slam_tpu_torch.ops import nn_bruteforce as nb
+from tests.torch_parity import nn, require_cuda
+
+
+def _problem(seed, n=4096, dtab=34, giant_cell=False):
+    """A random indexed-affine problem: points on a pose table, the last
+    row the identity (static points), optionally half of them in one
+    voxel."""
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(0, 4, size=(n, 3)).astype(np.float32)
+    if giant_cell:
+        xs[: n // 2] = 0.5 + 0.2 * rng.standard_normal((n // 2, 3)).astype(np.float32)
+    mask = rng.uniform(size=n) > 0.1
+    rings = rng.integers(0, 8, size=n).astype(np.int32)
+    tidx = rng.integers(0, dtab - 1, size=n)
+    tidx[n // 8 :: 7] = dtab - 1
+
+    def rand_tab(scale):
+        tab = np.zeros((dtab, 8), np.float32)
+        tab[:-1, 0:4] = nn(rot.axang2quat(torch.as_tensor(scale * rng.standard_normal((dtab - 1, 3)))))
+        tab[:-1, 4:7] = 0.5 * rng.standard_normal((dtab - 1, 3))
+        tab[-1, 0] = 1.0
+        return torch.as_tensor(tab)
+
+    tab0 = rand_tab(0.1)
+    ti = torch.as_tensor(tidx)
+    x = torch.as_tensor(xs)
+    world = rot.quat_rotate(tab0[ti, 0:4], x) + tab0[ti, 4:7]
+    args = (world, torch.as_tensor(mask), torch.as_tensor(rings), x, ti, 1.0, 4, tab0)
+    dtabs = torch.as_tensor(0.1 * rng.standard_normal((6, dtab, 8)), dtype=torch.float32)
+    dtabs[:, -1] = 0.0
+    tabs = torch.stack([tab0] + [rand_tab(0.1) for _ in range(14)])
+    return args, dtabs, tabs
+
+
+def _clouds(seed, n_ref, n_q, extent=10.0):
+    rng = np.random.default_rng(seed)
+    ref = torch.as_tensor(rng.uniform(-extent, extent, (n_ref, 3)), dtype=torch.float32)
+    q = torch.as_tensor(rng.uniform(-extent, extent, (n_q, 3)), dtype=torch.float32)
+    return ref, torch.as_tensor(rng.uniform(size=n_ref) > 0.2), q, torch.as_tensor(rng.uniform(size=n_q) > 0.2)
+
+
+def _cmp_packed(pk, pk_ref):
+    np.testing.assert_array_equal(pk[12:15], pk_ref[12:15])  # w, tidx, run starts
+    np.testing.assert_array_equal(pk[0:3], pk_ref[0:3])  # xs
+    np.testing.assert_allclose(pk[15], pk_ref[15], atol=1e-6)  # 1/count at valid ends
+    sel = np.abs(pk_ref[6:12]).sum(axis=0) > 0
+    np.testing.assert_allclose(pk[3:6, sel], pk_ref[3:6, sel], atol=2e-4)
+    scale = np.abs(pk_ref[6:12, sel]).max()
+    np.testing.assert_allclose(pk[6:12, sel], pk_ref[6:12, sel], atol=0.02 * scale)
+
+
+@pytest.mark.parametrize("giant_cell", [False, True])
+def test_wrappers_take_plain_versions_on_cpu(giant_cell):
+    """For CPU tensors each wrapper returns exactly its plain version's
+    result and counts no launch."""
+    args, dtabs, tabs = _problem(1, n=1024, giant_cell=giant_cell)
+    cuda_lib.reset_launches()
+    pk, nv, nr = fr.build_packed(*args)
+    pk_r, nv_r, nr_r = fr.build_packed_ref(*args)
+    assert torch.equal(pk, pk_r) and int(nv) == int(nv_r) and int(nr) == int(nr_r)
+    assert torch.equal(fr.gn_system(args[-1], dtabs, pk), fr.gn_system_ref(args[-1], dtabs, pk, include_mean_term=False))
+    assert torch.equal(fr.cand_errors(tabs, pk), fr.cand_errors_ref(tabs, pk))
+    ref, rv, q, qv = _clouds(2, 300, 200)
+    assert torch.equal(nb.min_sq_dist(ref, rv, q, qv), nb.min_sq_dist_ref(ref, rv, q, qv))
+    assert all(v == 0 for v in cuda_lib.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("giant_cell", [False, True])
+def test_k2_segments_partition_valid_cells(giant_cell):
+    """K2's host-side segmentation: every valid cell is cut into contiguous
+    segments of at most K2_SEGMENT members, numbered in order; invalid
+    cells get none; first_sid / vid index each valid cell's first segment
+    and its J row.  Summing u over a cell's segments then gives the cell's
+    u, as in the plain version."""
+    args, _, _ = _problem(4, n=4096, giant_cell=giant_cell)
+    pk = fr.build_packed(*args)[0]
+    seg_of, first_sid, vid, nvalid = (nn(a) for a in fr._k2_segments(pk))
+    p = nn(pk)
+    starts = np.flatnonzero(p[14] > 0.5)
+    ends = np.append(starts[1:], p.shape[1])
+    valid = p[15, ends - 1] > 0
+    assert int(nvalid[0]) == int(valid.sum()) > 0
+    next_sid = 0
+    for k, (a, b) in enumerate(zip(starts, ends)):
+        if not valid[k]:
+            assert np.all(seg_of[a:b] == -1)
+            continue
+        ids = seg_of[a:b]
+        n_seg = -(-(b - a) // fr.K2_SEGMENT)
+        np.testing.assert_array_equal(ids, next_sid + np.arange(b - a) // fr.K2_SEGMENT)
+        assert first_sid[b - 1] == next_sid and seg_of[b - 1] == next_sid + n_seg - 1
+        assert vid[b - 1] == int(valid[:k].sum())
+        next_sid += n_seg
+    assert next_sid <= p.shape[1] // 4 + p.shape[1] // fr.K2_SEGMENT + 1
+    if giant_cell:
+        assert (ends - starts).max() > 4 * fr.K2_SEGMENT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("giant_cell", [False, True])
+def test_k1_k3_match_plain_on_card(giant_cell):
+    require_cuda()
+    dev = torch.device("cuda")
+    args, dtabs, tabs = _problem(3, giant_cell=giant_cell)
+    args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
+    before = dict(cuda_lib.LAUNCHES)
+    pk, nv, nr = fr.build_packed(*args)
+    pk_r, nv_r, nr_r = fr.build_packed_ref(*args)
+    assert int(nv) == int(nv_r) and int(nr) == int(nr_r)
+    _cmp_packed(nn(pk), nn(pk_r))
+    dtabs, tabs = dtabs.to(dev), tabs.to(dev)
+    h = nn(fr.gn_system(args[-1], dtabs, pk))
+    h_r = nn(fr.gn_system_ref(args[-1], dtabs, pk, include_mean_term=False))
+    np.testing.assert_allclose(h, h_r, rtol=1e-3, atol=1e-4 * np.abs(h_r).max())
+    np.testing.assert_allclose(nn(fr.cand_errors(tabs, pk)), nn(fr.cand_errors_ref(tabs, pk)), rtol=2e-4)
+    for k in ("build_packed", "gn_system", "cand_errors"):
+        assert cuda_lib.LAUNCHES[k] == before[k] + 1, k
+
+
+@pytest.mark.gpu
+def test_k4_matches_plain_on_card():
+    require_cuda()
+    dev = torch.device("cuda")
+    ref, rv, q, qv = (a.to(dev) for a in _clouds(7, 5000, 3000))
+    d = nn(nb.min_sq_dist(ref, rv, q, qv))
+    d_r = nn(nb.min_sq_dist_ref(ref, rv, q, qv))
+    fin = np.isfinite(d_r)
+    np.testing.assert_array_equal(np.isfinite(d), fin)
+    np.testing.assert_allclose(d[fin], d_r[fin], rtol=1e-6, atol=1e-6)
+    no_ref = nn(nb.min_sq_dist(ref, torch.zeros_like(rv), q, qv))
+    assert np.all(np.isinf(no_ref))
