@@ -8,14 +8,24 @@ package beside this script; it exits non-zero otherwise.  Phases, each
 printed on its own lines and none of them caught:
 
   1. the card's name and power limit (nvidia-smi), then the build of the
-     hand-written kernels (csrc/*.cu -> build/kernels/) and its wall time;
-  2. each kernel K1-K4 against its plain PyTorch version on the card, on the
-     same inputs at the main path's shapes, with the stated tolerance, and
-     both times from CUDA events;
-  3. FusedDmsaSlam on bench_sequence(3) with bench_config(): 50 scans of
-     20,000 points.  Launch counters are zeroed just before and read just
-     after; every kernel must have run, kf_count >= 3, max_submap_span > 0
-     and the trajectory ATE against the analytic truth <= 0.03 m.
+     hand-written kernels (csrc/*.cu -> build/kernels/, one nvcc per source,
+     all at once) and its wall time;
+  2. each kernel K1-K5 against its plain PyTorch version on the card, on the
+     same inputs at the main path's shapes, with the stated tolerance, both
+     times from CUDA events, and the least time the card could take for the
+     same work (bound_ms: bytes over 3.35 TB/s or f32 operations over
+     67 TFLOP/s, whichever is larger, counted from this run's inputs);
+  3. the fused pipeline: FusedDmsaSlam on bench_sequence(3) with
+     bench_config(), 50 scans of 20,000 points.  Launch counters are zeroed
+     just before and read just after; every kernel must have run,
+     kf_count >= 3, max_submap_span > 0 and the trajectory ATE against the
+     analytic truth <= 0.03 m;
+  4. the host pipeline through the CLI runner's entry point:
+     pipeline.runner.run(--pipeline host) over a rosbag written from 40
+     scans of bench_sequence(3) at bench_config() width (20,000 points per
+     scan).  Counters zeroed just before and read just after: K4 and K5
+     must have run, kf_count >= 3, Poses.txt and PointCloud.pcd written, and
+     the output trajectory's ATE <= 0.03 m.
 
 The line before the last is a JSON object with one entry per kernel and
 shape; the last line is {"ok": true, "device": {...}}.  Any failed check
@@ -32,7 +42,18 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 ATE_GATE_M = 0.03
 N_SCANS = 50
+HOST_SCANS = 40
 PTS_PER_SCAN = 20000
+# the H100 SXM's published peaks: HBM3 bytes/s and f32 operations/s outside
+# the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+
+
+def _bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the least time for the work on this card."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_OPS_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def _timed(fn, reps):
@@ -90,13 +111,19 @@ def kernel_checks(device):
     rng = np.random.default_rng(0)
     results = []
 
-    def record(name, src, replaces, err, tol, ms, plain_ms, shape):
+    def record(name, src, replaces, err, tol, ms, plain_ms, shape, n_bytes, n_ops):
         ok = bool(err <= tol)
-        print(f"  {name:13s} {shape:34s} max_abs_err={err:.3e} tol={tol:.3e} "
-              f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms {'ok' if ok else 'FAIL'}", flush=True)
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
+        print(f"  {name:23s} {shape:34s} max_abs_err={err:.3e} tol={tol:.3e} "
+              f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         assert ok, f"{name} at {shape}: error {err} above tolerance {tol}"
+        # library_ms: no single PyTorch call computes any of these functions
+        # (K4's nearest distance is cdist then amin, two calls; see PERF.md)
         results.append(dict(name=f"{name} {shape}", route="cuda", source=src, replaces=replaces,
-                            max_abs_err=float(err), tolerance=float(tol), ms=float(ms), plain_ms=float(plain_ms)))
+                            max_abs_err=float(err), tolerance=float(tol), ms=float(ms), plain_ms=float(plain_ms),
+                            bound_ms=float(bound_ms), bound_by=bound_by, library_ms=None,
+                            bytes=int(n_bytes), operations=int(n_ops)))
 
     packs = {}
     # K1 at the window (2 x 28,672 over the 502-row dense table) and the
@@ -124,9 +151,13 @@ def kernel_checks(device):
             builds.append((pk, err))
         ms = _timed(lambda: fr.build_packed(*args), 10)
         plain_ms = _timed(lambda: fr.build_packed_ref(*args), 3)
+        # bytes: points, mask, rings, local points, int64 table index and the
+        # table in; the [16, n] packed rows out.  operations: ~45 per point
+        # (transform, moments), ~200 per occupied cell (floored inverse)
+        n_raw = int(fr.build_packed_ref(*args)[2])
         record("build_packed", "dmsa_lidar_slam_tpu_torch/csrc/k1_build.cu",
                "dmsa_lidar_slam_tpu/ops/fused_residuals.py:875", max(e for _, e in builds), 2e-2,
-               ms, plain_ms, f"n={n}")
+               ms, plain_ms, f"n={n}", 101 * n + 32 * dtab, 45 * n + 200 * n_raw)
         packs[n] = (torch.cat([b[0] for b in builds], dim=1), tab)
 
     # K2 at the window (P=30, M=57,344) and the 100-keyframe submap
@@ -145,9 +176,15 @@ def kernel_checks(device):
         err = float((h - h_r).abs().max()) / float(h_r.abs().max())
         ms = _timed(lambda: fr.gn_system(tab, dtabs, packed, max_cells=max_cells), 5)
         plain_ms = _timed(lambda: fr.gn_system_ref(tab, dtabs, packed, include_mean_term=False), 2)
+        # operations: per member of a valid cell its cotangent (~40) and the
+        # 7P-wide row contraction (14 P); per valid cell the rank-1 update
+        # of the [P+1, P+1] system (2 (P+1)^2)
+        m_valid = int(((packed[6:12].abs().sum(0) > 0) & (packed[12] > 0)).sum())
+        n_cells = int((packed[15] > 0).sum())
         record("gn_system", "dmsa_lidar_slam_tpu_torch/csrc/k2_gn.cu",
                "dmsa_lidar_slam_tpu/ops/fused_residuals.py:426", err, 1e-3, ms, plain_ms,
-               f"P={p_dim} M={m}")
+               f"P={p_dim} M={m}", 32 * tab.shape[0] * (1 + p_dim) + 64 * m + 4 * (p_dim + 1) ** 2,
+               m_valid * (40 + 14 * p_dim) + 2 * n_cells * (p_dim + 1) ** 2)
 
         tabs = []
         for k in range(15):
@@ -164,9 +201,12 @@ def kernel_checks(device):
         err = float(((e - e_r).abs() / e_r.abs().clamp(min=1e-30)).max())
         ms = _timed(lambda: fr.cand_errors(tabs, packed), 10)
         plain_ms = _timed(lambda: fr.cand_errors_ref(tabs, packed), 3)
+        # operations: per candidate, ~50 per member of a valid cell
+        # (transform, offset, packed quadratic form, run sums), ~20 per cell
         record("cand_errors", "dmsa_lidar_slam_tpu_torch/csrc/k3_cand.cu",
                "dmsa_lidar_slam_tpu/ops/fused_residuals.py:313", err, 2e-4, ms, plain_ms,
-               f"K=15 Dtab={tab.shape[0]} M={m}")
+               f"K=15 Dtab={tab.shape[0]} M={m}", 15 * 32 * tab.shape[0] + 64 * m + 60,
+               15 * (50 * m_valid + 20 * n_cells))
 
     # K4 at the two static-point queries of a bench scan
     for n_ref, n_q in ((20480, 12288), (8192, 20480)):
@@ -183,9 +223,50 @@ def kernel_checks(device):
         err = float(((d - d_r)[fin].abs() / d_r[fin].clamp(min=1.0)).max())
         ms = _timed(lambda: nb.min_sq_dist(ref, rv, q, qv), 20)
         plain_ms = _timed(lambda: nb.min_sq_dist_ref(ref, rv, q, qv), 3)
+        # operations: 10 per pair (3 differences, 3 products, 2 sums, the
+        # validity penalty, the min)
         record("min_sq_dist", "dmsa_lidar_slam_tpu_torch/csrc/k4_nn.cu",
                "dmsa_lidar_slam_tpu/ops/nn_bruteforce.py:86", err, 1e-5, ms, plain_ms,
-               f"refs={n_ref} queries={n_q}")
+               f"refs={n_ref} queries={n_q}", 13 * n_ref + 17 * n_q, 10 * n_ref * n_q)
+
+    # K5 at a keyframe cloud: one bench scan downsampled at the 0.4 m grid
+    # and cut to the 4,096-point keyframe cap, rho = 2 x grid
+    from dmsa_lidar_slam_tpu_torch.io.synthetic import bench_sequence
+    from dmsa_lidar_slam_tpu_torch.ops import voxel
+
+    grid, n_kf = 0.4, 4096
+    scan = torch.as_tensor(bench_sequence(3).scan(20, PTS_PER_SCAN)[0], dtype=torch.float32, device=device)
+    prio = torch.randint(-(2**31), 2**31, (scan.shape[0],), dtype=torch.int32, device=device,
+                         generator=torch.Generator(device=device).manual_seed(2))
+    keep = voxel.random_downsample_mask(scan, torch.ones(scan.shape[0], dtype=torch.bool, device=device), grid, prio)
+    idx, kmask = voxel.compact(keep, n_kf)
+    kpts = torch.where(kmask[:, None], scan[idx], torch.zeros_like(scan[idx])).contiguous()
+    out = nb.radius_neighbor_moments(kpts, kmask, 2.0 * grid)
+    out_r = nb.radius_neighbor_moments_ref(kpts, kmask, 2.0 * grid)
+    torch.cuda.synchronize()
+    cnt, mean, cov = out
+    cnt_r, mean_r, cov_r = out_r
+    agree = float((cnt == cnt_r).to(torch.float32).mean())
+    print(f"  radius_neighbor_moments N={n_kf} valid={int(kmask.sum())} rho={2 * grid} "
+          f"count agreement {agree:.6f} (tol: 1.0, the same op-by-op d2), mean count {float(cnt_r.mean()):.2f}",
+          flush=True)
+    assert agree == 1.0, "K5: neighbour counts differ"
+    # f32 sums of the same neighbourhood offsets in another order: means to
+    # 1e-5 m (coordinates up to ~14 m), covariances to 1e-5 of their scale
+    mean_err = float((mean - mean_r).abs().max())
+    cov_scale = float(cov_r.abs().max())
+    cov_err = float((cov - cov_r).abs().max())
+    assert mean_err <= 1e-5, f"K5: means differ by {mean_err} m"
+    ms = _timed(lambda: nb.radius_neighbor_moments(kpts, kmask, 2.0 * grid), 20)
+    plain_ms = _timed(lambda: nb.radius_neighbor_moments_ref(kpts, kmask, 2.0 * grid), 3)
+    # bytes: points and mask in, count, mean and the full 3x3 cov out.
+    # operations: 9 per pair of valid points for the distance test, ~20 per
+    # neighbour counted (this run's counts) for the ten sums
+    nv = int(kmask.sum())
+    record("radius_neighbor_moments", "dmsa_lidar_slam_tpu_torch/csrc/k5_moments.cu",
+           "dmsa_lidar_slam_tpu/ops/nn_bruteforce.py:216", cov_err, 1e-5 * cov_scale, ms, plain_ms,
+           f"N={n_kf} rho={2 * grid}", 65 * n_kf, 9 * nv * nv + 20 * int(cnt_r.sum()))
+    results[-1].update(count_agreement=agree, mean_max_abs_err=mean_err)
     return results
 
 
@@ -235,10 +316,69 @@ def pipeline_run(device):
     events = slam.state.events.cpu().numpy()
     assert all(np.isfinite(events).ravel()), "non-finite event row"
     for k, v in launches.items():
-        assert v > 0, f"kernel {k} never launched on the main path"
+        assert v > 0, f"kernel {k} never launched on the fused path"
     assert slam.kf_count >= 3, slam.kf_count
     assert slam.max_submap_span > 0, slam.max_submap_span
     assert ate <= ATE_GATE_M, f"ATE {ate} above {ATE_GATE_M}"
+    return launches
+
+
+def host_run(device):
+    """The host pipeline through the CLI runner's entry point, over a rosbag
+    of HOST_SCANS bench scans written into the git-ignored build/."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.io.pcd import load_pcd
+    from dmsa_lidar_slam_tpu_torch.io.synthetic import ate_rmse, bench_config, bench_sequence
+    from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
+    from dmsa_lidar_slam_tpu_torch.pipeline import runner
+    from tests.torch_bag import bag_overrides, write_sequence_bag
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_host")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    try:
+        seq = bench_sequence(3)
+        bag = os.path.join(out_dir, "bench.bag")
+        write_sequence_bag(bag, seq, HOST_SCANS, PTS_PER_SCAN)
+        cfg = bench_config()
+        over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+        over.update(bag_overrides(bag, out_dir))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        slam = runner.run([], overrides=over, pipeline="host", device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+        poses = np.loadtxt(os.path.join(out_dir, "Poses.txt"), ndmin=2)
+        pcd, _ = load_pcd(os.path.join(out_dir, "PointCloud.pcd"))
+        ate = ate_rmse(poses[:, 0], poses[:, 1:4], seq)
+        out = dict(
+            launches=launches,
+            kf_count=slam.kf_map.count,
+            keyframes_added=slam.kf_map.num_updates,
+            poses_written=len(poses),
+            map_points_written=len(pcd),
+            ate_m=ate,
+            wall_ms_per_scan_runner=1000.0 * wall / HOST_SCANS,
+            stages_ms=slam.metrics.summary(),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        )
+        print("  host pipeline " + json.dumps(out), flush=True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for k in ("min_sq_dist", "radius_neighbor_moments"):
+        assert launches[k] > 0, f"kernel {k} never launched on the host path"
+    assert slam.kf_map.count >= 3, slam.kf_map.count
+    assert len(poses) >= 3 and len(pcd) > 500, (len(poses), len(pcd))
+    assert np.all(np.isfinite(poses)), "non-finite pose"
+    assert ate <= ATE_GATE_M, f"host pipeline ATE {ate} above {ATE_GATE_M}"
     return launches
 
 
@@ -264,10 +404,14 @@ def main():
 
     print("kernels vs plain versions:", flush=True)
     results = kernel_checks(device)
-    print("main path:", flush=True)
-    launches = pipeline_run(device)
+    print("main path, fused pipeline:", flush=True)
+    fused = pipeline_run(device)
+    print("main path, host pipeline (CLI runner):", flush=True)
+    host = host_run(device)
     for r in results:
-        r["launches"] = launches[r["name"].split()[0]]
+        k = r["name"].split()[0]
+        r["launches"] = fused[k] + host[k]
+        r["launches_by_path"] = {"fused": fused[k], "host": host[k]}
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -10,11 +10,13 @@ import torch
 
 from dmsa_lidar_slam_tpu_torch.map.device_map import DeviceMapState
 from dmsa_lidar_slam_tpu_torch.pipeline.fused import FusedState
+from dmsa_lidar_slam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
 
 
-def state_from_numpy(state, device="cpu") -> FusedState:
+def state_from_numpy(state, device=DEFAULT_DEVICE) -> FusedState:
     """A FusedState (with its DeviceMapState) whose leaves are numpy arrays
-    -> the port's FusedState on `device`."""
+    -> the port's FusedState on `device` (the card unless "cpu")."""
+    device = resolve(device)
 
     def t(x):
         return torch.as_tensor(np.array(x), device=device)

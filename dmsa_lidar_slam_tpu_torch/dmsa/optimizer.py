@@ -1,21 +1,33 @@
-"""The DMSA Gauss-Newton optimizer, tabular path (counterpart of the
-tabular path of dmsa_lidar_slam_tpu/dmsa/optimizer.py).
+"""The DMSA Gauss-Newton optimizer, tabular and structured paths
+(counterpart of dmsa_lidar_slam_tpu/dmsa/optimizer.py).
 
 Per iteration (DmsaOptimizer.h:54-150 semantics): rebuild Gaussian cells at
-two grid resolutions from the current points (K1), freeze membership and
-information matrices, form the Gauss-Newton normal equations (K2), take a
-damped step with an infinity-norm clip, and run the line search over
-candidate 0 (the unstepped params) plus the step fractions (K3).
+two grid resolutions from the current points, freeze membership and
+information matrices, form the Gauss-Newton normal equations, take a
+damped step with an infinity-norm clip, and run the line search.
 
-The table Jacobian comes from torch.func.jacfwd over the table builder;
-the candidate tables from torch.func.vmap.  The loop stops on the host when
-an iteration sets `done` (one device sync per iteration).
+  - tabular path (the fused pipeline): cell build K1, normal equations K2,
+    line search over candidate 0 (the unstepped params) plus the step
+    fractions K3.  The table Jacobian comes from torch.func.jacfwd over the
+    table builder, the candidate tables from torch.func.vmap;
+  - structured path (the host pipeline): gaussians.build_cells, the closed
+    form per-point residual gradient contracted against the problem's
+    pose-table Jacobian (torch.func.jacfwd over the small table graph),
+    J^T J in the pose dtype, and the line search as a loop over the step
+    fractions, each a forward plus the frozen cell residuals.
+
+The autodiff path (no structured_fn, no tabular_fn) is not ported.  The
+loop stops on the host when an iteration sets `done` (one device sync per
+iteration).
 """
 
 import dataclasses
+import functools
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+
+from dmsa_lidar_slam_tpu_torch.ops import gaussians
 
 # stop reason codes
 STOP_NONE = 0
@@ -109,21 +121,33 @@ def _iteration(forward_fn, tabular_fn, params, data, settings, min_grid_size, st
     je = j_extra.to(pdt)
     H = H + je @ je.T + settings.lambda_diag * torch.eye(num_params, dtype=pdt, device=dev)
     g = g + je @ extra0.to(pdt)
-    step = -step_length * torch.linalg.solve(H, g)
-
-    nan_step = torch.any(torch.isnan(step))
-    step = torch.where(nan_step, torch.zeros_like(step), step)
-    max_elem = torch.max(torch.abs(step))
-    step = torch.where(max_elem > max_step, (max_step / torch.clamp(max_elem, min=1e-30)) * step, step)
+    step, nan_step = _clipped_step(H, g, step_length, max_step)
 
     ks = torch.tensor(settings.line_search_fracs, dtype=pdt, device=dev)
     cand_params = torch.cat([params[None, :], params[None, :] + ks[:, None] * step[None, :]], dim=0)
     tabs, extras = torch.func.vmap(tab_fn)(cand_params)
     errs = fr.cand_errors(tabs, packed).to(pdt) + torch.sum(extras.to(pdt) ** 2, dim=1)
+    return _finish(params, cand_params, errs, step, nan_step, n_gauss, settings)
+
+
+def _clipped_step(H, g, step_length, max_step):
+    """-step_length * H^-1 g, zeroed if NaN, clipped in the infinity norm
+    (DmsaOptimizer.h:116-128).  Returns (step, nan_step)."""
+    step = -step_length * torch.linalg.solve(H, g)
+    nan_step = torch.any(torch.isnan(step))
+    step = torch.where(nan_step, torch.zeros_like(step), step)
+    max_elem = torch.max(torch.abs(step))
+    step = torch.where(max_elem > max_step, (max_step / torch.clamp(max_elem, min=1e-30)) * step, step)
+    return step, nan_step
+
+
+def _finish(params, cand_params, errs, step, nan_step, n_gauss, settings):
+    """Line-search argmin over errs [1 + K] (row 0: the unstepped params)
+    and the stop decision.  Aborts keep the pre-step params
+    (DmsaOptimizer.h:118,136)."""
     best = torch.argmin(errs)
     new_params = torch.where(best > 0, cand_params[best], params)
     new_error = errs[best]
-
     too_few = n_gauss < settings.min_num_gaussians
     no_improve = best == 0
     eps_stop = torch.linalg.norm(step) < settings.epsilon
@@ -140,6 +164,57 @@ def _iteration(forward_fn, tabular_fn, params, data, settings, min_grid_size, st
     return params_out, done, stop_reason.to(torch.int32), new_error, n_gauss.to(torch.int32)
 
 
+def _build_all_cells(out, settings, min_grid_size):
+    cells = []
+    for factor in (settings.grid_size_1_factor, settings.grid_size_2_factor):
+        if factor > 1e-30:
+            cells.append(
+                gaussians.build_cells(
+                    out.points, out.mask, out.ring_ids, factor * min_grid_size,
+                    settings.min_num_points_per_set, split_ids=out.split_ids,
+                )
+            )
+    return cells
+
+
+def _iteration_structured(forward_fn, structured_fn, params, data, settings, min_grid_size, step_length, max_step):
+    """One Gauss-Newton iteration on the structured Jacobian: per cell set,
+    the closed-form residual gradient per point, contracted to parameter
+    rows by the problem (contract) and summed over each cell's members."""
+    pdt, dev = params.dtype, params.device
+    num_params = params.shape[0]
+    out, contract, j_extra = structured_fn(params, data)
+    cells = _build_all_cells(out, settings, min_grid_size)
+    merged = gaussians.concat_cells(cells, out.points.shape[0])
+    e_parts, j_parts = [], []
+    for c in cells:
+        res, g_sorted = gaussians.cell_residuals_and_grad(out.points, out.mask, c)
+        g_orig = torch.zeros_like(out.points).index_copy_(0, c.order, g_sorted)
+        jp = contract(g_orig)  # [N, P] per-point rows, original order
+        jc = torch.zeros_like(jp).index_add_(0, c.start, jp[c.order])  # cell sums at run starts
+        e_parts.append(res)
+        j_parts.append(torch.where(c.valid[:, None], jc, torch.zeros_like(jc)))
+    rdt = torch.promote_types(e_parts[0].dtype, out.extra.dtype)
+    e0 = torch.cat([e.to(rdt) for e in e_parts] + [out.extra.to(rdt)])
+    J = torch.cat([j.to(rdt) for j in j_parts + [j_extra]], dim=0)
+    n_gauss = sum(c.num_valid.to(torch.int64) for c in cells)
+    error0 = torch.dot(e0, e0)
+
+    H = J.T @ J + settings.lambda_diag * torch.eye(num_params, dtype=J.dtype, device=dev)
+    step, nan_step = _clipped_step(H, J.T @ e0, step_length, max_step)
+
+    ks = torch.tensor(settings.line_search_fracs, dtype=pdt, device=dev)
+    cand_params = params[None, :] + ks[:, None] * step[None, :]
+    cand_err = []
+    for p in cand_params:  # one forward and one frozen-cell residual pass per step fraction
+        o = forward_fn(p, data)
+        e = torch.cat([gaussians.cell_residuals(o.points, o.mask, merged).to(rdt), o.extra.to(rdt)])
+        cand_err.append(torch.dot(e, e))
+    errs = torch.stack([error0] + cand_err)
+    cand_params = torch.cat([params[None, :], cand_params], dim=0)
+    return _finish(params, cand_params, errs, step, nan_step, n_gauss, settings)
+
+
 def optimize(
     forward_fn: Callable[[torch.Tensor, Any], ForwardOut],
     params0: torch.Tensor,
@@ -149,13 +224,22 @@ def optimize(
     step_length=None,
     max_step=None,
     tabular_fn: Optional[TabularProblem] = None,
+    structured_fn: Optional[Callable] = None,
 ) -> OptimResult:
-    """Run the DMSA optimization on the tabular (kernel) path.
+    """Run the DMSA optimization on the tabular (kernel) path when
+    tabular_fn is given, else on the structured path.
 
-    step_length / max_step optionally override the settings (tensors or
-    floats).  Centralization is the caller's (it rewrites the data)."""
-    if tabular_fn is None:
-        raise ValueError("the port implements the tabular optimizer path only")
+    structured_fn(params, data) -> (ForwardOut, contract, J_extra [E, P]),
+    where contract(grad3 [N, 3]) -> [N, P] maps per-point residual
+    cotangents to parameter rows.  step_length / max_step optionally
+    override the settings (tensors or floats).  Centralization is the
+    caller's (it rewrites the data)."""
+    if tabular_fn is not None:
+        iteration = functools.partial(_iteration, forward_fn, tabular_fn)
+    elif structured_fn is not None:
+        iteration = functools.partial(_iteration_structured, forward_fn, structured_fn)
+    else:
+        raise ValueError("the port has the tabular and structured optimizer paths only")
     dev, pdt = params0.device, params0.dtype
     step_length = settings.step_length_optim if step_length is None else step_length
     max_step = settings.max_step if max_step is None else max_step
@@ -166,9 +250,7 @@ def optimize(
     ng = torch.tensor(0, dtype=torch.int32, device=dev)
     iters = 0
     for _ in range(settings.num_iter):
-        params, done, reason, err, ng = _iteration(
-            forward_fn, tabular_fn, params, data, settings, min_grid_size, step_length, max_step
-        )
+        params, done, reason, err, ng = iteration(params, data, settings, min_grid_size, step_length, max_step)
         if iters == 0:
             err0 = err
         iters += 1

@@ -120,6 +120,49 @@ def make_forward(shapes: MapShapes, use_gravity: bool, use_odometry: bool, use_s
 
 
 @lru_cache(maxsize=None)
+def make_structured(shapes: MapShapes, use_gravity: bool, use_odometry: bool, use_split: bool):
+    """Structured-Jacobian forward for the keyframe problem (see
+    dmsa.optimizer): each point depends only on its keyframe's global pose
+    (q_k, t_k), so the pose-table Jacobian (Dq [K, 4, P], Dt [K, 3, P]) is
+    one torch.func.jacfwd over the small chain graph and the per-point
+    contraction a batched [Pp, 4] x [4, P] product per keyframe."""
+
+    def structured(params, data: KeyframeMapData):
+        def tables(p):
+            chain, gp = global_chain(p, data, shapes)
+            return rot.axang2quat(gp.orient), gp.transl, _extras(chain, gp, data, use_gravity, use_odometry, p)
+
+        q, t, extra = tables(params)
+        dq, dt_, j_extra = torch.func.jacfwd(tables)(params)  # [K,4,P], [K,3,P], [E,P]
+        q32 = q.to(torch.float32)[:, None, :]
+        pts_w = rot.quat_rotate(q32, data.local_pts) + t.to(torch.float32)[:, None, :]
+        mask = data.pt_mask & data.kf_mask[:, None]
+        split = None
+        if use_split:
+            split = normal_split_ids(rot.quat_rotate(q32, data.local_normals).reshape(-1, 3))
+        out = ForwardOut(
+            points=pts_w.reshape(-1, 3),
+            mask=mask.reshape(-1),
+            ring_ids=data.pt_ring.reshape(-1),
+            extra=extra,
+            split_ids=split,
+        )
+        gq = dq.to(torch.float32)
+        gt = dt_.to(torch.float32)
+        k, ppk, p_dim = shapes.n_keyframes, shapes.n_pts_per_kf, params.shape[0]
+
+        def contract(grad3_orig):
+            g = grad3_orig.reshape(k, ppk, 3)
+            aq = rot.quat_rotate_vjp_q(q32, data.local_pts, g)  # [K, Pp, 4]
+            jp = torch.einsum("kpc,kcq->kpq", aq, gq) + torch.einsum("kpc,kcq->kpq", g, gt)
+            return jp.reshape(k * ppk, p_dim)
+
+        return out, contract, j_extra
+
+    return structured
+
+
+@lru_cache(maxsize=None)
 def make_tabular(shapes: MapShapes, use_gravity: bool, use_odometry: bool) -> TabularProblem:
     """The keyframe problem in table form: one table row per keyframe pose
     (plus the unused identity row, so both problems share the kernels)."""
@@ -151,3 +194,19 @@ def odometry_residuals(chain: cp.PoseChain, data: KeyframeMapData):
     quad = quad + torch.einsum("ki,ij,kj->k", orient_diff, data.odom_orient_cov_inv, orient_diff)
     quad = quad * data.balancing_odom
     return torch.where(data.kf_mask[1:], torch.sqrt(torch.abs(quad) + 1e-30), torch.zeros_like(quad))
+
+
+def min_grid_size(data: KeyframeMapData):
+    """Minimum grid size over active keyframes (MapManagement.h:126-131)."""
+    return torch.min(torch.where(data.kf_mask, data.grid_size, torch.full_like(data.grid_size, float("inf"))))
+
+
+def global_points(params, data: KeyframeMapData, shapes: MapShapes):
+    """Assembled global map with normals (updateGlobalPoints,
+    MapManagement.h:120-149).  Returns (points [K*P, 3], normals, mask,
+    rings)."""
+    out = make_forward(shapes, False, False, False)(params, data)
+    _, gp = global_chain(params, data, shapes)
+    R = rot.axang2rotm(gp.orient).to(torch.float32)
+    nrm_w = torch.einsum("kij,kpj->kpi", R, data.local_normals).reshape(-1, 3)
+    return out.points, nrm_w, out.mask, out.ring_ids

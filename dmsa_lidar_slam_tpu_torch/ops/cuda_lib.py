@@ -1,6 +1,7 @@
 """Build, load and count the hand-written CUDA kernels of csrc/.
 
-The sources are compiled at first use with nvcc for sm_90a into one shared
+The sources are compiled at first use with nvcc for sm_90a, one nvcc
+process per source, all started together, then linked into one shared
 library with a plain C interface under build/kernels/ (named by a hash of
 the sources and flags, so a change rebuilds and an unchanged tree reuses
 the library), and loaded with ctypes.  Every C entry point returns
@@ -22,12 +23,12 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
-LAUNCHES = {"build_packed": 0, "gn_system": 0, "cand_errors": 0, "min_sq_dist": 0}
+LAUNCHES = {
+    "build_packed": 0, "gn_system": 0, "cand_errors": 0, "min_sq_dist": 0, "radius_neighbor_moments": 0,
+}
 BUILD_SECONDS = None  # wall time of the last nvcc build (None: none ran)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -44,6 +45,8 @@ _SIGNATURES = {
     "k3_cand_errors": [_P, _I, _I, _P, _I, _P, _P, _P],
     # ref, rvalid, n, q, qvalid, nq, out, stream
     "k4_min_sq_dist": [_P, _P, _I, _P, _P, _I, _P, _P],
+    # pts, valid, n, rho2, cnt, mean, cov, stream
+    "k5_radius_moments": [_P, _P, _I, _P, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -75,22 +78,37 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the hashed library if it is not there yet."""
+    """Compile csrc/*.cu into the hashed library if it is not there yet:
+    one nvcc per source, all running at once, then one link."""
     global BUILD_SECONDS
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", tmp, *map(str, cu)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, f.stem + ".o") for f in cu]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o", o, str(f)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for f, o in zip(cu, objs)
+        ]
+        errors = []
+        for f, p in zip(cu, procs):
+            _, err = p.communicate()
+            if p.returncode != 0:
+                errors.append(f"{f.name} ({p.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        tmp = os.path.join(tmpdir, so.name)
+        res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, so)
     BUILD_SECONDS = time.perf_counter() - t0
     return so
 

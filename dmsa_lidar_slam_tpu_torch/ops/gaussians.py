@@ -115,3 +115,57 @@ def cell_residuals(points, mask, cells: CellSet):
     corr = cells.count * torch.sum(sym6_matvec(cells.lamw6, s_mean) * s_mean, dim=1)
     val = sums[:, 3] - corr
     return torch.where(cells.valid, torch.sqrt(torch.abs(val) + 1e-30), torch.zeros_like(val))
+
+
+def concat_cells(cells_list, n_points: int) -> CellSet:
+    """Merge per-resolution CellSets into one over the concatenated sorted
+    layout (orders still index the same [n_points] points; run offsets are
+    shifted by each slab's start, which is always a run start)."""
+    if len(cells_list) == 1:
+        return cells_list[0]
+    offs = [i * n_points for i in range(len(cells_list))]
+
+    def cat(field, shift=False):
+        parts = [getattr(c, field) for c in cells_list]
+        if shift:
+            parts = [p + o for p, o in zip(parts, offs)]
+        return torch.cat(parts, dim=0)
+
+    return CellSet(
+        order=cat("order"),
+        start=cat("start", shift=True),
+        end=cat("end", shift=True),
+        info6=cat("info6"),
+        lamw6=cat("lamw6"),
+        mu0=cat("mu0"),
+        w_sorted=cat("w_sorted"),
+        weight=cat("weight"),
+        count=cat("count"),
+        valid=cat("valid"),
+        num_valid=sum(c.num_valid for c in cells_list),
+        num_raw=sum(c.num_raw for c in cells_list),
+        valid_mem=cat("valid_mem") if all(c.valid_mem is not None for c in cells_list) else None,
+    )
+
+
+def cell_residuals_and_grad(points, mask, cells: CellSet):
+    """cell_residuals plus the closed-form per-point residual gradient.
+
+    Returns (res [N], grad3_sorted [N, 3]): grad3_sorted[j] = d res[slot(j)]
+    / d p_j for the sorted point j (zero for masked points and invalid
+    cells), sign(val) * wL (p_j - mu_current) / res (the mean term vanishes
+    because the centred offsets sum to zero)."""
+    pts_s = points[cells.order]
+    d0 = (pts_s - cells.mu0) * cells.w_sorted[:, None]
+    quad = torch.sum(sym6_matvec(cells.lamw6, d0) * d0, dim=1)
+    sums = voxel.run_sums(torch.cat([d0, quad[:, None]], dim=1), cells.start)
+    s_mean = sums[:, :3] / torch.clamp(cells.count, min=1.0)[:, None]
+    corr = cells.count * torch.sum(sym6_matvec(cells.lamw6, s_mean) * s_mean, dim=1)
+    val = sums[:, 3] - corr
+    r = torch.sqrt(torch.abs(val) + 1e-30)
+    res = torch.where(cells.valid, r, torch.zeros_like(r))
+    ldiff = sym6_matvec(cells.lamw6, d0 - s_mean)
+    scale = torch.sign(val) / r
+    valid_m = cells.valid[cells.start]
+    g = torch.where(valid_m[:, None], scale[:, None] * ldiff, torch.zeros_like(ldiff)) * cells.w_sorted[:, None]
+    return res, g

@@ -42,6 +42,7 @@ from dmsa_lidar_slam_tpu_torch.pipeline.metrics import Metrics
 from dmsa_lidar_slam_tpu_torch.pipeline.output import OutputManager
 from dmsa_lidar_slam_tpu_torch.trajectory import continuous as ct
 from dmsa_lidar_slam_tpu_torch.trajectory.device_guess import traced_initial_guess
+from dmsa_lidar_slam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
 from dmsa_lidar_slam_tpu_torch.utils.dtypes import POSE_DTYPE
 
 log = logging.getLogger("dmsa_fused_torch")
@@ -493,9 +494,9 @@ class FusedDmsaSlam:
     """Host wrapper with the reference's public API: one upload and one
     step per scan, batched event download every `flush_every` scans."""
 
-    def __init__(self, config: Optional[Config] = None, flush_every: int = 16, device="cpu"):
+    def __init__(self, config: Optional[Config] = None, flush_every: int = 16, device=DEFAULT_DEVICE):
         self.config = config or Config()
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.shapes = shapes_from_config(self.config, flush_every)
         self.flush_every = min(flush_every, self.shapes.ev_cap)
         self.step = make_step(self.config, self.shapes, self.device)
@@ -679,6 +680,40 @@ class FusedDmsaSlam:
         base = self._stamp_base or 0.0
         stamps = self.state.kf.stamps.cpu().numpy()[:n] + base if n else np.zeros(0)
         return stamps, transl, orient
+
+    def map_points(self, first: int = 0):
+        """Global keyframe map [N, 3] from keyframe `first` on (PCD export,
+        viewers); one download of the map state."""
+        n = self.kf_count
+        if n == 0 or first >= n:
+            return None
+        from scipy.spatial.transform import Rotation
+
+        kf = self.state.kf
+        pts = kf.local_pts[first:n].cpu().numpy()
+        msk = kf.pt_mask[first:n].cpu().numpy()
+        orient = kf.orient_w[first:n].cpu().numpy()
+        transl = kf.transl_w[first:n].cpu().numpy()
+        out = []
+        for k in range(n - first):
+            R = Rotation.from_rotvec(orient[k]).as_matrix().astype(np.float32)
+            out.append(pts[k][msk[k]] @ R.T + transl[k].astype(np.float32))
+        return np.concatenate(out)
+
+    def submap_points(self, span: int = 8):
+        """Clouds of the most recent `span` keyframes (the live view's submap,
+        dmsa_slam_ros.cpp:222-225)."""
+        return self.map_points(first=max(0, self.kf_count - span))
+
+    def current_pose(self):
+        """(position [3], rotvec [3]) of the latest keyframe pose."""
+        n = self.kf_count
+        if n == 0:
+            return None
+        return (
+            self.state.kf.transl_w[n - 1].cpu().numpy().astype(float),
+            self.state.kf.orient_w[n - 1].cpu().numpy().astype(float),
+        )
 
     def all_poses(self):
         self._flush_events()

@@ -66,6 +66,10 @@ class WindowData(NamedTuple):
     balancing_imu: torch.Tensor  # []
 
 
+def dense_times(data: WindowData, shapes: WindowShapes):
+    return torch.arange(shapes.n_dense, dtype=data.dt.dtype, device=data.dt.device) * data.dt
+
+
 def ctrl_stamps_from_dt(dt, shapes: WindowShapes):
     idx = torch.tensor(shapes.param_indices, dtype=dt.dtype, device=dt.device)
     return idx * dt
@@ -112,6 +116,8 @@ def dense_pose_tables(params, data: WindowData, shapes: WindowShapes):
 
 
 def dense_poses(params, data: WindowData, shapes: WindowShapes):
+    """As dense_pose_tables with dense orientations as axis-angle [D, 3]
+    (the reference's dense_poses and dense_poses_jit)."""
     chain, gp, q_dense, d_transl = dense_pose_tables(params, data, shapes)
     return chain, gp, rot.quat2axang(q_dense), d_transl
 
@@ -157,6 +163,55 @@ def make_forward(shapes: WindowShapes, use_imu: bool):
         return ForwardOut(points=pts, mask=mask, ring_ids=rings, extra=extra)
 
     return forward
+
+
+@lru_cache(maxsize=None)
+def make_structured(shapes: WindowShapes, use_imu: bool):
+    """Structured-Jacobian forward of the window problem (see
+    dmsa.optimizer): a point's world position depends only on its dense-
+    table row, and the dense tables on the P parameters through the small
+    control-chain graph, so the table Jacobian (Dq [D, 4, P], Dt [D, 3, P])
+    is one torch.func.jacfwd over that graph and the per-point chain rule
+    is the closed-form quat_rotate VJP plus one gathered contraction.
+    Static map points do not depend on the parameters: their rows are
+    zero."""
+
+    def structured(params, data: WindowData):
+        def tables(p):
+            chain, gp, q_dense, d_transl = dense_pose_tables(p, data, shapes)
+            if use_imu:
+                extra = imu_residuals(chain, gp, d_transl, data, shapes)
+            else:
+                extra = torch.zeros(0, dtype=p.dtype, device=p.device)
+            return q_dense, d_transl, extra
+
+        q_d, t_d, extra = tables(params)
+        dq, dt_, j_extra = torch.func.jacfwd(tables)(params)  # [D,4,P], [D,3,P], [E,P]
+        idx = data.pt_tform_idx.to(torch.int64)
+        qp = q_d.to(torch.float32)[idx]
+        tp = t_d.to(torch.float32)[idx]
+        pts_w = rot.quat_rotate(qp, data.local_pts) + tp
+        out = ForwardOut(
+            points=torch.cat([pts_w, data.static_pts], dim=0),
+            mask=torch.cat([data.pt_mask, data.static_mask]),
+            ring_ids=torch.cat([data.pt_ring, data.static_ring]),
+            extra=extra,
+        )
+        gq = dq.to(torch.float32)[idx]  # [NW, 4, P]
+        gt = dt_.to(torch.float32)[idx]  # [NW, 3, P]
+        nw = shapes.n_window_pts
+        p_dim = params.shape[0]
+
+        def contract(grad3_orig):
+            g = grad3_orig[:nw]
+            aq = rot.quat_rotate_vjp_q(qp, data.local_pts, g)  # [NW, 4]
+            jp = torch.einsum("nc,ncp->np", aq, gq) + torch.einsum("nc,ncp->np", g, gt)
+            zeros = torch.zeros(shapes.n_static, p_dim, dtype=jp.dtype, device=jp.device)
+            return torch.cat([jp, zeros], dim=0)
+
+        return out, contract, j_extra
+
+    return structured
 
 
 @lru_cache(maxsize=None)
@@ -221,6 +276,60 @@ def submap_gravity_estimate(gp, d_transl, data: WindowData, shapes: WindowShapes
     R_start = rot.axang2rotm(gp.orient[0])
     num = R_start.T @ (gp.transl[-1] - gp.transl[0] - v_start_w * data.horizon) - data.preint_pos_full
     return num / (0.5 * data.horizon**2)
+
+
+def register_tform_indices(rel_stamps, dt, n_dense):
+    """Per-point dense-table index (registerPcBuffer,
+    ContinuousTrajectory.h:245-261): lower_bound of (stamp - t0) over the
+    uniform dense grid, clamped."""
+    idx = torch.ceil(rel_stamps / dt - 1e-9).to(torch.int32)
+    return torch.clamp(idx, 0, n_dense - 1)
+
+
+def initial_guess(old_gp, old_stamps, old_t0: float, new_t0: float, new_ctrl_stamps, preint_factors,
+                  delta_t_ctrl, gravity, use_imu: bool, last_known: int, n_ctrl: int):
+    """Window initial guess (updateInitialGuess, ContinuousTrajectory.h:
+    367-469) with `last_known` computed by the caller on the host.
+
+    Prefix poses (control stamps the old window still covers) come from
+    slerp + barycentric interpolation of the old control poses, the
+    terminal velocity from the barycentric derivative, the rest from IMU
+    dead-reckoning or constant-velocity extrapolation.  Returns the full
+    PoseChain (anchor row 0 + relative poses)."""
+    shift = torch.as_tensor(new_t0 - old_t0, dtype=old_stamps.dtype, device=old_stamps.device)
+    t_query = new_ctrl_stamps[: last_known + 1] + shift
+    pref_orient = interp.interp_rotations(t_query, old_stamps, old_gp.orient)
+    pref_transl = interp.barycentric_interp(t_query, old_stamps, old_gp.transl, d=2)
+    v0 = interp.barycentric_derivative(
+        new_ctrl_stamps[last_known : last_known + 1] + shift, old_stamps, old_gp.transl, d=2
+    )[0]
+    if use_imu:
+        pr_rot, pr_vel, pr_pos = preint_factors
+        aa_suffix, p_suffix = preint_mod.dead_reckon_controls(
+            pref_orient[last_known],
+            pref_transl[last_known],
+            v0,
+            preint_mod.PreintState(
+                delta_rot=pr_rot[last_known:], delta_vel=pr_vel[last_known:], delta_pos=pr_pos[last_known:],
+                cov=None,
+            ),
+            delta_t_ctrl[last_known:],
+            gravity,
+        )
+        g_orient = torch.cat([pref_orient[:last_known], aa_suffix], dim=0)
+        g_transl = torch.cat([pref_transl[:last_known], p_suffix], dim=0)
+        return cp.global2relative(cp.GlobalPoses(orient=g_orient, transl=g_transl))
+    # constant velocity: repeat the last known relative pose (ContinuousTrajectory.h:458-468)
+    tail_n = n_ctrl - 1 - last_known
+    z = torch.zeros(tail_n, 3, dtype=pref_orient.dtype, device=pref_orient.device)
+    chain = cp.global2relative(
+        cp.GlobalPoses(orient=torch.cat([pref_orient, z], dim=0), transl=torch.cat([pref_transl, z], dim=0))
+    )
+    tail = (torch.arange(n_ctrl, device=z.device) > last_known)[:, None]
+    return cp.PoseChain(
+        orient=torch.where(tail, chain.orient[last_known][None, :], chain.orient),
+        transl=torch.where(tail, chain.transl[last_known][None, :], chain.transl),
+    )
 
 
 def centralize(data: WindowData):

@@ -133,11 +133,19 @@ def test_preintegration():
 
 
 def test_port_never_imports_jax():
+    """Every module of the port (pkgutil.walk_packages), chip_smoke.py and
+    the bag writer it uses, imported in a fresh process, pull in neither jax
+    nor the reference package."""
     code = (
-        "import sys\n"
-        "import dmsa_lidar_slam_tpu_torch.pipeline.fused\n"
-        "import dmsa_lidar_slam_tpu_torch.convert\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m.startswith('dmsa_lidar_slam_tpu.')]\n"
+        "import importlib, pkgutil, sys\n"
+        "import dmsa_lidar_slam_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "assert len(names) > 40, names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke, tests.torch_bag\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'dmsa_lidar_slam_tpu'"
+        " or m.startswith('dmsa_lidar_slam_tpu.')]\n"
         "assert not bad, bad\n"
     )
     import os
@@ -145,3 +153,22 @@ def test_port_never_imports_jax():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("entry", ["FusedDmsaSlam", "state_from_numpy"])
+def test_entry_points_default_to_the_card(entry):
+    """Without device= an entry point asks for the card: with none it raises
+    and never carries on on the CPU (DmsaSlam and runner.run: the slam and
+    runner tests)."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch import convert
+    from dmsa_lidar_slam_tpu_torch.pipeline.fused import FusedDmsaSlam
+    from dmsa_lidar_slam_tpu_torch.utils.device import DEFAULT_DEVICE
+
+    assert DEFAULT_DEVICE == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    fn = {"FusedDmsaSlam": FusedDmsaSlam, "state_from_numpy": convert.state_from_numpy}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fn(None)

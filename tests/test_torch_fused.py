@@ -218,7 +218,7 @@ def test_state_roundtrip(reference_run):
     _, _, steps = reference_run
     state = steps[-1][3]
     assert int(state.kf.count) >= 2
-    port = convert.state_from_numpy(state)
+    port = convert.state_from_numpy(state, device="cpu")
     assert port.kf.transl_w.dtype == torch.float64 and port.scan_pts.dtype == torch.float32
     back = convert.state_to_numpy(port)
     for name, w, g in _leaves(state, back):
@@ -245,7 +245,7 @@ def test_one_step_from_shared_state(reference_run):
     for before, pack, aux, after in steps:
         seed = int(aux[shapes.n_dense + 2, 1])
         out = port_step(
-            convert.state_from_numpy(before), torch.as_tensor(pack), torch.as_tensor(aux),
+            convert.state_from_numpy(before, device="cpu"), torch.as_tensor(pack), torch.as_tensor(aux),
             jax_step_priorities(seed, shapes),
         )
         out = convert.state_to_numpy(out)

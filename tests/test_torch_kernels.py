@@ -1,4 +1,4 @@
-"""The port's kernel wrappers K1-K4 (csrc/*.cu) and their plain versions.
+"""The port's kernel wrappers K1-K5 (csrc/*.cu) and their plain versions.
 
 This file imports neither jax nor the reference package, so it also runs on
 a machine that has a CUDA card and no jax:
@@ -18,7 +18,9 @@ scale (moments about the run's first member against the plain two-pass
 moments, amplified by the floored inverse: the reference's own kernel test
 grants the same); K2 to 1e-3 relative (f32 sums over cells in another
 order); K3 to 2e-4 relative (f32-class sums, compared with each other by
-the line search); K4 to 1e-6 relative (the same f32 formula).
+the line search); K4 to 1e-6 relative (the same f32 formula); K5's counts
+exactly (the same op-by-op d2), its means to 2e-6 m and its covariances to
+1e-5 of their scale (f32 sums of the same offsets in another order).
 """
 
 import numpy as np
@@ -160,3 +162,21 @@ def test_k4_matches_plain_on_card():
     np.testing.assert_allclose(d[fin], d_r[fin], rtol=1e-6, atol=1e-6)
     no_ref = nn(nb.min_sq_dist(ref, torch.zeros_like(rv), q, qv))
     assert np.all(np.isinf(no_ref))
+
+
+@pytest.mark.gpu
+def test_k5_matches_plain_on_card():
+    require_cuda()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8)
+    pts = torch.as_tensor(rng.uniform(-2, 2, (3000, 3)), dtype=torch.float32, device=dev)
+    valid = torch.as_tensor(rng.uniform(size=3000) > 0.2, device=dev)
+    pts[~valid] = float("nan")
+    before = cuda_lib.LAUNCHES["radius_neighbor_moments"]
+    cnt, mean, cov = (nn(a) for a in nb.radius_neighbor_moments(pts, valid, 0.5))
+    assert cuda_lib.LAUNCHES["radius_neighbor_moments"] == before + 1
+    cnt_r, mean_r, cov_r = (nn(a) for a in nb.radius_neighbor_moments_ref(pts, valid, 0.5))
+    np.testing.assert_array_equal(cnt, cnt_r)
+    assert cnt_r.max() >= 10
+    np.testing.assert_allclose(mean, mean_r, atol=2e-6)
+    np.testing.assert_allclose(cov, cov_r, atol=1e-5 * np.abs(cov_r).max())

@@ -50,6 +50,15 @@ def jax_step_priorities(seed: int, shapes):
     )
 
 
+def jax_counter_priorities(counter: int, n: int):
+    """The int32 priorities the reference's DmsaSlam draws for its
+    `counter`-th downsampling (slam.py:141-143: jax.random.PRNGKey(counter)
+    handed to random_downsample_mask), for the port's DmsaSlam.priorities."""
+    import jax
+
+    return tt(jax_bits(jax.random.PRNGKey(counter), n))
+
+
 def require_cuda():
     """Skip (inside the test, never at import) when there is no CUDA card."""
     if not torch.cuda.is_available():
