@@ -12,9 +12,14 @@ printed on its own lines and none of them caught:
      all at once) and its wall time;
   2. each kernel K1-K5 against its plain PyTorch version on the card, on the
      same inputs at the main path's shapes, with the stated tolerance, both
-     times from CUDA events, and the least time the card could take for the
-     same work (bound_ms: bytes over 3.35 TB/s or f32 operations over
-     67 TFLOP/s, whichever is larger, counted from this run's inputs);
+     times from CUDA events after one warm-up call (ms, plain_ms), and the
+     least time the card could take for the same work (bound_ms: bytes over
+     3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger,
+     counted from this run's inputs); the steady-state time after 20
+     warm-up calls (ms_steady) and the host's time to enqueue one call
+     (host_ms); K1's keys bit for bit against voxel.voxel_keys, with the
+     grid as a host number and as a card scalar, and K1 and K2 bit for bit
+     against a second call;
   3. the fused pipeline: FusedDmsaSlam on bench_sequence(3) with
      bench_config(), 50 scans of 20,000 points.  Launch counters are zeroed
      just before and read just after; every kernel must have run,
@@ -25,7 +30,12 @@ printed on its own lines and none of them caught:
      scans of bench_sequence(3) at bench_config() width (20,000 points per
      scan).  Counters zeroed just before and read just after: K4 and K5
      must have run, kf_count >= 3, Poses.txt and PointCloud.pcd written, and
-     the output trajectory's ATE <= 0.03 m.
+     the output trajectory's ATE <= 0.03 m;
+  5. the CUDA kernels one call of each kernel row runs on the card
+     (device_launches) and the card's busy time for it (device_ms), from
+     torch.profiler over one call after a warm-up, those inside torch ops
+     included.  Last, because CUPTI tracing slows whatever runs while it is
+     on.
 
 The line before the last is a JSON object with one entry per kernel and
 shape; the last line is {"ok": true, "device": {...}}.  Any failed check
@@ -44,6 +54,7 @@ ATE_GATE_M = 0.03
 N_SCANS = 50
 HOST_SCANS = 40
 PTS_PER_SCAN = 20000
+STEADY_REPS = 20  # warm-up and timed calls of ms_steady and host_ms
 # the H100 SXM's published peaks: HBM3 bytes/s and f32 operations/s outside
 # the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -56,12 +67,23 @@ def _bound(n_bytes, n_ops):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _timed(fn, reps):
-    """Mean ms per call from CUDA events, after one warm-up call."""
+def _warm(fn, calls):
+    """`calls` calls, then a sync."""
     import torch
 
-    fn()
+    for _ in range(calls):
+        fn()
     torch.cuda.synchronize()
+
+
+def _timed(fn, reps, warmup=1):
+    """Mean ms per call from CUDA events over `reps` calls enqueued back to
+    back, after `warmup` calls and a sync.  `ms` of the kernel rows takes
+    one warm-up call; `ms_steady` as many as it times, since the first calls
+    after an idle card run slower than the steady state (PERF.md)."""
+    import torch
+
+    _warm(fn, warmup)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(reps):
@@ -69,6 +91,45 @@ def _timed(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _host_ms(fn, reps):
+    """Mean host ms to enqueue one call, no sync in between, after as many
+    warm-up calls."""
+    import torch
+
+    _warm(fn, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * dt / reps
+
+
+def _profile(fn):
+    """(device ms, kernels {name: (count, device us)}) of one call after a
+    warm-up, from torch.profiler: device ms is the card's busy time (kernels
+    and copies); copies and memsets are not kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    on_card = torch.autograd.DeviceType.CUDA
+    host_names = {e.name for e in events if e.device_type != on_card}
+    busy_us, kernels = 0.0, {}
+    for e in events:
+        if e.device_type == on_card and e.name not in host_names:
+            busy_us += e.device_time
+            if not e.name.startswith(("Memcpy", "Memset")):
+                c, us = kernels.get(e.name[:60], (0, 0.0))
+                kernels[e.name[:60]] = (c + 1, us + e.device_time)
+    return busy_us / 1000.0, kernels
 
 
 def _scene_problem(rng, n, dtab, device):
@@ -105,35 +166,52 @@ def kernel_checks(device):
     import numpy as np
     import torch
 
+    from dmsa_lidar_slam_tpu_torch.ops import cuda_lib, voxel
     from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
     from dmsa_lidar_slam_tpu_torch.ops import nn_bruteforce as nb
 
     rng = np.random.default_rng(0)
-    results = []
+    results, calls = [], []
 
-    def record(name, src, replaces, err, tol, ms, plain_ms, shape, n_bytes, n_ops):
+    def record(name, src, replaces, err, tol, fn, reps, plain_fn, plain_reps, shape, n_bytes, n_ops):
         ok = bool(err <= tol)
+        ms = _timed(fn, reps)
+        plain_ms = _timed(plain_fn, plain_reps)
+        ms_steady = _timed(fn, STEADY_REPS, warmup=STEADY_REPS)
+        host_ms = _host_ms(fn, STEADY_REPS)
         bound_ms, bound_by = _bound(n_bytes, n_ops)
         print(f"  {name:23s} {shape:34s} max_abs_err={err:.3e} tol={tol:.3e} "
-              f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms bound={bound_ms:.4f} ms ({bound_by}) "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+              f"kernel={ms:.4f} ms steady={ms_steady:.4f} ms host={host_ms:.4f} ms plain={plain_ms:.4f} ms "
+              f"bound={bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
         assert ok, f"{name} at {shape}: error {err} above tolerance {tol}"
         # library_ms: no single PyTorch call computes any of these functions
         # (K4's nearest distance is cdist then amin, two calls; see PERF.md)
         results.append(dict(name=f"{name} {shape}", route="cuda", source=src, replaces=replaces,
-                            max_abs_err=float(err), tolerance=float(tol), ms=float(ms), plain_ms=float(plain_ms),
-                            bound_ms=float(bound_ms), bound_by=bound_by, library_ms=None,
-                            bytes=int(n_bytes), operations=int(n_ops)))
+                            max_abs_err=float(err), tolerance=float(tol), ms=float(ms), ms_steady=float(ms_steady),
+                            host_ms=float(host_ms), plain_ms=float(plain_ms), bound_ms=float(bound_ms),
+                            bound_by=bound_by, library_ms=None, bytes=int(n_bytes), operations=int(n_ops)))
+        calls.append(fn)
 
     packs = {}
+    lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(device)
     # K1 at the window (2 x 28,672 over the 502-row dense table) and the
     # 100-keyframe ring (409,600 points over 101 keyframe rows)
     for n, dtab, grid in ((28672, 502, 0.6), (409600, 101, 0.6)):
         pts, mask, rings, xs, ti, tab = _scene_problem(rng, n, dtab, device)
         builds = []
-        for g in (grid, 2.5 * grid):
+        for factor in (1.0, 2.5):
+            # the keys with the grid as a host number and as the optimizer
+            # passes it (factor times an f32 scalar on the card); the cells
+            # with the latter
+            g = factor * torch.tensor(grid, dtype=torch.float32, device=device)
+            for gk in (float(g), g):
+                key = fr._k1_keys(pts, mask, gk, None, lib, stream)
+                want = voxel.combined_key(*voxel.voxel_keys(pts, mask, gk))
+                assert torch.equal(key, want), f"K1: keys differ, grid {gk!r}"
             args = (pts, mask, rings, xs, ti, g, 10, tab)
             pk, nv, nr = fr.build_packed(*args)
+            again = fr.build_packed(*args)
+            assert all(torch.equal(a, b) for a, b in zip((pk, nv, nr), again)), "K1: not repeatable"
             pk_r, nv_r, nr_r = fr.build_packed_ref(*args)
             torch.cuda.synchronize()
             assert int(nv) == int(nv_r) and int(nr) == int(nr_r), (int(nv), int(nv_r), int(nr), int(nr_r))
@@ -149,15 +227,14 @@ def kernel_checks(device):
             scale = float(pk_r[6:12][:, sel].abs().max())
             err = float((pk[6:12][:, sel] - pk_r[6:12][:, sel]).abs().max()) / scale
             builds.append((pk, err))
-        ms = _timed(lambda: fr.build_packed(*args), 10)
-        plain_ms = _timed(lambda: fr.build_packed_ref(*args), 3)
         # bytes: points, mask, rings, local points, int64 table index and the
         # table in; the [16, n] packed rows out.  operations: ~45 per point
         # (transform, moments), ~200 per occupied cell (floored inverse)
         n_raw = int(fr.build_packed_ref(*args)[2])
         record("build_packed", "dmsa_lidar_slam_tpu_torch/csrc/k1_build.cu",
                "dmsa_lidar_slam_tpu/ops/fused_residuals.py:875", max(e for _, e in builds), 2e-2,
-               ms, plain_ms, f"n={n}", 101 * n + 32 * dtab, 45 * n + 200 * n_raw)
+               lambda args=args: fr.build_packed(*args), 10, lambda args=args: fr.build_packed_ref(*args), 3,
+               f"n={n}", 101 * n + 32 * dtab, 45 * n + 200 * n_raw)
         packs[n] = (torch.cat([b[0] for b in builds], dim=1), tab)
 
     # K2 at the window (P=30, M=57,344) and the 100-keyframe submap
@@ -170,20 +247,21 @@ def kernel_checks(device):
         dtabs[:, -1, :] = 0.0
         max_cells = m // 10 + 2
         h = fr.gn_system(tab, dtabs, packed, max_cells=max_cells)
+        assert torch.equal(h, fr.gn_system(tab, dtabs, packed, max_cells=max_cells)), "K2: not repeatable"
         h_r = fr.gn_system_ref(tab, dtabs, packed, include_mean_term=False)
         torch.cuda.synchronize()
         # f32 sums over ~1e4-1e5 cells in another order
         err = float((h - h_r).abs().max()) / float(h_r.abs().max())
-        ms = _timed(lambda: fr.gn_system(tab, dtabs, packed, max_cells=max_cells), 5)
-        plain_ms = _timed(lambda: fr.gn_system_ref(tab, dtabs, packed, include_mean_term=False), 2)
         # operations: per member of a valid cell its cotangent (~40) and the
         # 7P-wide row contraction (14 P); per valid cell the rank-1 update
         # of the [P+1, P+1] system (2 (P+1)^2)
         m_valid = int(((packed[6:12].abs().sum(0) > 0) & (packed[12] > 0)).sum())
         n_cells = int((packed[15] > 0).sum())
         record("gn_system", "dmsa_lidar_slam_tpu_torch/csrc/k2_gn.cu",
-               "dmsa_lidar_slam_tpu/ops/fused_residuals.py:426", err, 1e-3, ms, plain_ms,
-               f"P={p_dim} M={m}", 32 * tab.shape[0] * (1 + p_dim) + 64 * m + 4 * (p_dim + 1) ** 2,
+               "dmsa_lidar_slam_tpu/ops/fused_residuals.py:426", err, 1e-3,
+               lambda tab=tab, dtabs=dtabs, packed=packed, mc=max_cells: fr.gn_system(tab, dtabs, packed, max_cells=mc),
+               5, lambda tab=tab, dtabs=dtabs, packed=packed: fr.gn_system_ref(tab, dtabs, packed, include_mean_term=False),
+               2, f"P={p_dim} M={m}", 32 * tab.shape[0] * (1 + p_dim) + 64 * m + 4 * (p_dim + 1) ** 2,
                m_valid * (40 + 14 * p_dim) + 2 * n_cells * (p_dim + 1) ** 2)
 
         tabs = []
@@ -199,12 +277,12 @@ def kernel_checks(device):
         # candidate errors are compared with each other: f32-class sums,
         # relative to each candidate's value
         err = float(((e - e_r).abs() / e_r.abs().clamp(min=1e-30)).max())
-        ms = _timed(lambda: fr.cand_errors(tabs, packed), 10)
-        plain_ms = _timed(lambda: fr.cand_errors_ref(tabs, packed), 3)
         # operations: per candidate, ~50 per member of a valid cell
         # (transform, offset, packed quadratic form, run sums), ~20 per cell
         record("cand_errors", "dmsa_lidar_slam_tpu_torch/csrc/k3_cand.cu",
-               "dmsa_lidar_slam_tpu/ops/fused_residuals.py:313", err, 2e-4, ms, plain_ms,
+               "dmsa_lidar_slam_tpu/ops/fused_residuals.py:313", err, 2e-4,
+               lambda tabs=tabs, packed=packed: fr.cand_errors(tabs, packed), 10,
+               lambda tabs=tabs, packed=packed: fr.cand_errors_ref(tabs, packed), 3,
                f"K=15 Dtab={tab.shape[0]} M={m}", 15 * 32 * tab.shape[0] + 64 * m + 60,
                15 * (50 * m_valid + 20 * n_cells))
 
@@ -221,12 +299,12 @@ def kernel_checks(device):
         assert torch.equal(fin, torch.isfinite(d)), "K4: +inf pattern differs"
         # same f32 difference-of-coordinates formula, another rounding order
         err = float(((d - d_r)[fin].abs() / d_r[fin].clamp(min=1.0)).max())
-        ms = _timed(lambda: nb.min_sq_dist(ref, rv, q, qv), 20)
-        plain_ms = _timed(lambda: nb.min_sq_dist_ref(ref, rv, q, qv), 3)
         # operations: 10 per pair (3 differences, 3 products, 2 sums, the
         # validity penalty, the min)
         record("min_sq_dist", "dmsa_lidar_slam_tpu_torch/csrc/k4_nn.cu",
-               "dmsa_lidar_slam_tpu/ops/nn_bruteforce.py:86", err, 1e-5, ms, plain_ms,
+               "dmsa_lidar_slam_tpu/ops/nn_bruteforce.py:86", err, 1e-5,
+               lambda a=(ref, rv, q, qv): nb.min_sq_dist(*a), 20,
+               lambda a=(ref, rv, q, qv): nb.min_sq_dist_ref(*a), 3,
                f"refs={n_ref} queries={n_q}", 13 * n_ref + 17 * n_q, 10 * n_ref * n_q)
 
     # K5 at a keyframe cloud: one bench scan downsampled at the 0.4 m grid
@@ -257,17 +335,17 @@ def kernel_checks(device):
     cov_scale = float(cov_r.abs().max())
     cov_err = float((cov - cov_r).abs().max())
     assert mean_err <= 1e-5, f"K5: means differ by {mean_err} m"
-    ms = _timed(lambda: nb.radius_neighbor_moments(kpts, kmask, 2.0 * grid), 20)
-    plain_ms = _timed(lambda: nb.radius_neighbor_moments_ref(kpts, kmask, 2.0 * grid), 3)
     # bytes: points and mask in, count, mean and the full 3x3 cov out.
     # operations: 9 per pair of valid points for the distance test, ~20 per
     # neighbour counted (this run's counts) for the ten sums
     nv = int(kmask.sum())
     record("radius_neighbor_moments", "dmsa_lidar_slam_tpu_torch/csrc/k5_moments.cu",
-           "dmsa_lidar_slam_tpu/ops/nn_bruteforce.py:216", cov_err, 1e-5 * cov_scale, ms, plain_ms,
+           "dmsa_lidar_slam_tpu/ops/nn_bruteforce.py:216", cov_err, 1e-5 * cov_scale,
+           lambda: nb.radius_neighbor_moments(kpts, kmask, 2.0 * grid), 20,
+           lambda: nb.radius_neighbor_moments_ref(kpts, kmask, 2.0 * grid), 3,
            f"N={n_kf} rho={2 * grid}", 65 * n_kf, 9 * nv * nv + 20 * int(cnt_r.sum()))
     results[-1].update(count_agreement=agree, mean_max_abs_err=mean_err)
-    return results
+    return results, calls
 
 
 def pipeline_run(device):
@@ -403,11 +481,16 @@ def main():
           f"-> {cuda_lib.library_path()}", flush=True)
 
     print("kernels vs plain versions:", flush=True)
-    results = kernel_checks(device)
+    results, calls = kernel_checks(device)
     print("main path, fused pipeline:", flush=True)
     fused = pipeline_run(device)
     print("main path, host pipeline (CLI runner):", flush=True)
     host = host_run(device)
+    print("CUDA kernels per call (torch.profiler):", flush=True)
+    for r, fn in zip(results, calls):
+        device_ms, kernels = _profile(fn)
+        r["device_ms"], r["device_launches"] = device_ms, sum(c for c, _ in kernels.values())
+        print(f"  {r['name']:55s} kernels={r['device_launches']} device={device_ms:.4f} ms", flush=True)
     for r in results:
         k = r["name"].split()[0]
         r["launches"] = fused[k] + host[k]

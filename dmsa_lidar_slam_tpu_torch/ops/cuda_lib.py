@@ -33,14 +33,16 @@ BUILD_SECONDS = None  # wall time of the last nvcc build (None: none ran)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # tab, dtab, kin, n, min_points, floor, packed, endw, stream
-    "k1_build_fwd": [_P, _I, _P, _I, _I, _F, _P, _P, _P],
-    # endw, n, packed, stats, nvalid, stream
-    "k1_build_finish": [_P, _I, _P, _P, _P, _P],
-    # tab, jt, P, packed, m, seg_of, first_sid, vid, stage_u, stage_s, jrows, rmax, stream
-    "k2_gn_rows": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P],
-    # jrows, nrows, P1, splits, partial, hext, stream
-    "k2_gn_jtj": [_P, _P, _I, _I, _P, _P, _P],
+    # pts, mask, split, n, g_host, grid, key, stream
+    "k1_voxel_keys": [_P, _P, _P, _I, _F, _P, _P, _P],
+    # tab, xs, tidx, rings, mask, key_s, order, n, min_points, floor, packed, partial, nvalid,
+    # num_raw, stream
+    "k1_build": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
+    # tab, jt, P, packed, m, stage_u, stage_s, has_start, block_cnt, partial, hext, stream
+    "k2_gn_small": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    # tab, jt, P, packed, m, stage_u, stage_s, has_start, block_cnt, jrows, rmax, nrows, splits,
+    # partial, hext, stream
+    "k2_gn_large": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
     # tabs, K, dtab, packed, m, partial, out, stream
     "k3_cand_errors": [_P, _I, _I, _P, _I, _P, _P, _P],
     # ref, rvalid, n, q, qvalid, nq, out, stream
@@ -126,13 +128,16 @@ def library():
 
 
 def stream_ptr(device):
+    """The raw handle of `device`'s current CUDA stream (an int, as ctypes
+    takes a pointer; ~4 us cheaper than a torch.cuda.Stream object)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    return t.data_ptr()
 
 
 def check(err: int, name: str):

@@ -6,8 +6,11 @@ quat_rotate(q[tidx_j], x_j) + t[tidx_j] with (q, t) rows of a small pose
 table (the window's dense trajectory table or one row per keyframe; static
 points ride on a trailing identity row).
 
-  K1 build_packed  voxel sort (torch) -> cell build kernel -> packed [16, N]
-  K2 gn_system     Hext = [J e]^T [J e] over the cell residuals, [P+1, P+1]
+  K1 build_packed  voxel-key kernel -> torch.sort of the int64 keys -> cell
+                   build kernel + normalisation kernel -> packed [16, N]
+  K2 gn_system     Hext = [J e]^T [J e] over the cell residuals, [P+1, P+1]:
+                   chunk pieces staged, cells summed, Hext reduced, all in
+                   3-4 kernel launches
   K3 cand_errors   line-search errors of K candidate tables, [K]
 
 Packed per-point layout [16, M] (the reference's, kept so the tests compare
@@ -16,15 +19,18 @@ like with like):
     6-11 lamw6 (weight * Lambda, packed 00,01,02,11,12,22), 12 w (validity),
     13 table index, 14 run-start flag, 15 1/count at valid run-end rows.
 
-Each public function runs its CUDA kernel (csrc/) for CUDA tensors and its
+Each public function runs its CUDA kernels (csrc/) for CUDA tensors and its
 plain version (the *_ref twin) for CPU tensors; there is no fallback from
-one to the other.
+one to the other.  On the card the wrappers enqueue no torch work besides
+allocations, the one sort of K1 and the operand copies of prep_tables /
+prep_jac_tables, and never wait for the card.
 """
 
+import numpy as np
 import torch
 
 from dmsa_lidar_slam_tpu_torch.core.rotations import quat_rotate, quat_rotate_vjp_q
-from dmsa_lidar_slam_tpu_torch.ops import cuda_lib, gaussians, voxel
+from dmsa_lidar_slam_tpu_torch.ops import cuda_lib, gaussians
 from dmsa_lidar_slam_tpu_torch.ops.eig3 import sym6_matvec
 from dmsa_lidar_slam_tpu_torch.ops.gaussians import COV_EIG_FLOOR
 
@@ -75,26 +81,64 @@ def _world_points(tab, xs, tidx):
     return quat_rotate(q, xs.to(_F32)) + t3
 
 
+def _scratch(device, *nbytes):
+    """One allocation for several scratch arrays of a kernel call.  Returns
+    the buffer (keep it alive across the launch) and a 256-byte-aligned
+    pointer to each array."""
+    offs, total = [], 0
+    for b in nbytes:
+        offs.append(total)
+        total += -(-int(b) // 256) * 256
+    buf = torch.empty(max(total, 256), dtype=torch.uint8, device=device)
+    return buf, [buf.data_ptr() + o for o in offs]
+
+
 # --------------------------------------------------------------------------
 # K1: cell build
 # --------------------------------------------------------------------------
 
+K1_BLOCK_POSITIONS = 256  # sorted positions per build_fwd block (csrc/k1_build.cu)
 
-def _sorted_kin(points_w, mask, ring_ids, xs, tidx, grid_size, split_ids):
-    """Voxel sort and run flags (torch, as the reference leaves them to
-    XLA).  Returns (kin [6, n] f32: xs(3), enc, newc, is_end; num_raw)."""
-    hi, lo = voxel.voxel_keys(points_w, mask, grid_size, channel=split_ids)
-    key_s, order = torch.sort(voxel.combined_key(hi, lo), stable=True)
-    enc = (
-        (tidx.to(torch.int32) << 11) | ((ring_ids.to(torch.int32) & 1023) << 1) | mask.to(torch.int32)
-    ).to(_F32)
-    new_cell, is_end = voxel.run_flags(key_s)
-    enc_s = enc[order]
-    kin = torch.cat(
-        [xs.to(_F32)[order].T, enc_s[None], new_cell.to(_F32)[None], is_end.to(_F32)[None]], dim=0
-    ).contiguous()
-    num_raw = torch.sum(new_cell & mask[order])
-    return kin, num_raw
+
+def _grid_operand(grid_size, device):
+    """The grid as k1_voxel_keys takes it: (g_host, grid pointer or None).
+
+    voxel.voxel_coords divides by the grid; PyTorch's CUDA division by a
+    host scalar multiplies by the scalar's f32 reciprocal (computed on the
+    host), while a device tensor divides, rounded once.  The key kernel does
+    what PyTorch does for the same argument, so points on a voxel boundary
+    land in the same cell as in the plain version.  A grid on the card is
+    an f32 scalar, as the optimizer passes it."""
+    if isinstance(grid_size, torch.Tensor):
+        if grid_size.numel() != 1:
+            raise ValueError(f"grid_size: one value expected, got shape {tuple(grid_size.shape)}")
+        if grid_size.is_cuda:
+            if grid_size.dtype != _F32 or grid_size.device != device:
+                raise ValueError(f"grid_size: f32 on {device} expected, got {grid_size.dtype} on {grid_size.device}")
+            return 0.0, cuda_lib.ptr(grid_size)
+        grid_size = grid_size.item()
+    return float(np.float32(1.0) / np.float32(grid_size)), None
+
+
+def _k1_keys(points_w, mask, grid_size, split_ids, lib, stream):
+    """K1's key kernel: the int64 sort key of every point, bit for bit
+    voxel.combined_key(*voxel.voxel_keys(points_w, mask, grid_size,
+    channel=split_ids)) as PyTorch computes it on the card."""
+    dev = points_w.device
+    n = points_w.shape[0]
+    cuda_lib.require(points_w, "points_w", _F32, (n, 3), dev)
+    cuda_lib.require(mask, "mask", torch.bool, (n,), dev)
+    if split_ids is not None:
+        cuda_lib.require(split_ids, "split_ids", torch.int32, (n,), dev)
+    g_host, grid_ptr = _grid_operand(grid_size, dev)
+    key = torch.empty(n, dtype=torch.int64, device=dev)
+    P = cuda_lib.ptr
+    cuda_lib.check(
+        lib.k1_voxel_keys(P(points_w), P(mask), None if split_ids is None else P(split_ids), n, g_host,
+                          grid_ptr, P(key), stream),
+        "k1_voxel_keys",
+    )
+    return key
 
 
 def build_packed(points_w, mask, ring_ids, xs, tidx, grid_size, min_points: int, tab, split_ids=None):
@@ -102,33 +146,38 @@ def build_packed(points_w, mask, ring_ids, xs, tidx, grid_size, min_points: int,
 
     points_w [N, 3] supply the voxel keys; the cell statistics use the
     world points recomputed from (tab [Dtab, 8], xs, tidx) in f32, exactly
-    as K2/K3 recompute them.  Returns (packed [16, N], num_valid, num_raw).
+    as K2/K3 recompute them.  Returns (packed [16, N], num_valid, num_raw),
+    the counts as device scalars (int32, int64).
+
+    On the card: the key kernel, one stable torch.sort of the keys, then the
+    build kernel gathers through the sort order itself and a second kernel
+    normalises the weights (csrc/k1_build.cu).
     """
     if not points_w.is_cuda:
         return build_packed_ref(points_w, mask, ring_ids, xs, tidx, grid_size, min_points, tab, split_ids)
-    if tab.shape[0] > 8192:
-        raise ValueError("enc packs the table index in 13 bits")
     dev = points_w.device
-    kin, num_raw = _sorted_kin(points_w, mask, ring_ids, xs, tidx, grid_size, split_ids)
-    n = kin.shape[1]
+    n = points_w.shape[0]
     tabc = prep_tables(tab)
     cuda_lib.require(tabc, "tab", _F32, device=dev)
-    cuda_lib.require(kin, "kin", _F32, (6, n), dev)
-    packed = torch.empty((PACK_ROWS, n), dtype=_F32, device=dev)
-    endw = torch.empty((2, n), dtype=_F32, device=dev)
-    stats = torch.empty(2, dtype=_F32, device=dev)
-    nvalid = torch.empty((), dtype=torch.int32, device=dev)
+    cuda_lib.require(xs, "xs", _F32, (n, 3), dev)
+    cuda_lib.require(tidx, "tidx", torch.int64, (n,), dev)
+    cuda_lib.require(ring_ids, "ring_ids", torch.int32, (n,), dev)
     lib = cuda_lib.library()
     stream = cuda_lib.stream_ptr(dev)
-    P = cuda_lib.ptr
     cuda_lib.LAUNCHES["build_packed"] += 1
+    key = _k1_keys(points_w, mask, grid_size, split_ids, lib, stream)
+    key_s, order = torch.sort(key, stable=True)
+    packed = torch.empty((PACK_ROWS, n), dtype=_F32, device=dev)
+    # int64 words: num_raw, nvalid (int32), then 16 bytes per build block
+    aux = torch.empty(2 + 2 * (-(-n // K1_BLOCK_POSITIONS)), dtype=torch.int64, device=dev)
+    P = cuda_lib.ptr
     cuda_lib.check(
-        lib.k1_build_fwd(P(tabc), tabc.shape[0], P(kin), n, int(min_points),
-                         float(COV_EIG_FLOOR), P(packed), P(endw), stream),
-        "k1_build_fwd",
+        lib.k1_build(P(tabc), P(xs), P(tidx), P(ring_ids), P(mask), P(key_s), P(order), n, int(min_points),
+                     float(COV_EIG_FLOOR), P(packed), aux.data_ptr() + 16,
+                     aux.data_ptr() + 8, P(aux), stream),
+        "k1_build",
     )
-    cuda_lib.check(lib.k1_build_finish(P(endw), n, P(packed), P(stats), P(nvalid), stream), "k1_build_finish")
-    return packed, nvalid, num_raw
+    return packed, aux.view(torch.int32)[2], aux[0]
 
 
 def build_packed_ref(points_w, mask, ring_ids, xs, tidx, grid_size, min_points: int, tab=None, split_ids=None):
@@ -160,32 +209,9 @@ def _unpack(packed):
     return xs, mu0, lam6, w, tidx, newc, invn_end
 
 
-K2_SEGMENT = 128  # most members per K2 segment: a long cell spreads over warps
-
-
-def _k2_segments(pk):
-    """Cut every valid cell (run of the packed rows) into segments of at most
-    K2_SEGMENT members.  Returns per position: seg_of (segment id, -1 in
-    invalid cells), first_sid (segment id of the cell's first member) and
-    vid (exclusive count of valid cell ends), all int32, plus the number of
-    valid cells [1].  No host sync."""
-    m = pk.shape[1]
-    dev = pk.device
-    iota = torch.arange(m, dtype=torch.int64, device=dev)
-    newc = pk[14] > 0.5
-    valid_end = pk[15] > 0
-    run_start = torch.cummax(torch.where(newc, iota, torch.zeros_like(iota)), 0).values
-    run_id = torch.cumsum(newc, 0) - 1
-    run_valid = torch.zeros(m, dtype=torch.int32, device=dev).scatter_reduce_(
-        0, run_id, valid_end.to(torch.int32), "amax"
-    )
-    pos_valid = run_valid[run_id] > 0
-    seg_start = pos_valid & (newc | ((iota - run_start) % K2_SEGMENT == 0))
-    seg_of = torch.where(pos_valid, torch.cumsum(seg_start, 0, dtype=torch.int32) - 1, -1).to(torch.int32)
-    first_sid = seg_of[run_start].contiguous()
-    incl = torch.cumsum(valid_end, 0, dtype=torch.int32)
-    vid = (incl - valid_end.to(torch.int32)).contiguous()
-    return seg_of.contiguous(), first_sid, vid, incl[-1:]
+K2_CHUNK = 128  # positions per K2 chunk (one warp); a piece is a cell's members in one chunk
+K2_WARPS = 4  # chunks per K2 block
+K2_SMALL_P1 = 128  # P + 1 at most for the block-private Hext in shared memory
 
 
 def gn_system(tab, dtabs, packed, max_cells=None):
@@ -195,43 +221,104 @@ def gn_system(tab, dtabs, packed, max_cells=None):
     Jacobian, packed [16, M].  Returns Hext [P+1, P+1] f32 with
     Hext[:P, :P] = J^T J, Hext[:P, P] = J^T e, Hext[P, P] = e^T e, omitting
     the mean term like the reference's kernel.  max_cells bounds the number
-    of valid cells (M // min_points_per_cell); it sizes the staged J rows.
+    of valid cells (M // min_points_per_cell); for P + 1 > K2_SMALL_P1 it
+    sizes the dense J rows.
+
+    On the card the kernels find the cells and their chunk pieces from the
+    packed rows themselves (csrc/k2_gn.cu; gn_system_pieces_ref states the
+    cut in plain torch): 3 launches for P + 1 <= K2_SMALL_P1, 4 above.
     """
     if not packed.is_cuda:
         return gn_system_ref(tab, dtabs, packed, include_mean_term=False)
     dev = packed.device
     p_dim = dtabs.shape[0]
     m = packed.shape[1]
-    rmax = m if max_cells is None else max(1, min(m, int(max_cells)))
     tabc = prep_tables(tab)
     jt = prep_jac_tables(dtabs)
     pk = packed.contiguous()
     cuda_lib.require(tabc, "tab", _F32, device=dev)
     cuda_lib.require(jt, "jt", _F32, (tab.shape[0], 7, p_dim), dev)
     cuda_lib.require(pk, "packed", _F32, (PACK_ROWS, m), dev)
-    seg_of, first_sid, vid, nvalid = _k2_segments(pk)
-    nrows = torch.clamp(nvalid, max=rmax).contiguous()
-    # segments: at most one per valid cell plus one per K2_SEGMENT members
-    nseg = rmax + m // K2_SEGMENT + 1
     p1 = p_dim + 1
-    tiles = -(-p1 // 64)
-    splits = max(1, min(-(-264 // (tiles * tiles)), -(-rmax // 256)))
-    stage_u = torch.empty((nseg, p_dim), dtype=_F32, device=dev)
-    stage_s = torch.empty((nseg, 4), dtype=_F32, device=dev)
-    jrows = torch.empty((rmax, p1), dtype=_F32, device=dev)
-    partial = torch.empty((splits, p1, p1), dtype=_F32, device=dev)
+    nchunks = -(-m // K2_CHUNK)
+    blocks = -(-nchunks // K2_WARPS)
+    # stage_u [2 nchunks, P], stage_s [2 nchunks, 4], has_start [nchunks], block_cnt [blocks]
+    stage = (8 * nchunks * p_dim, 32 * nchunks, 4 * nchunks, 4 * blocks)
     hext = torch.empty((p1, p1), dtype=_F32, device=dev)
     lib = cuda_lib.library()
     stream = cuda_lib.stream_ptr(dev)
     P = cuda_lib.ptr
     cuda_lib.LAUNCHES["gn_system"] += 1
-    cuda_lib.check(
-        lib.k2_gn_rows(P(tabc), P(jt), p_dim, P(pk), m, P(seg_of), P(first_sid), P(vid), P(stage_u),
-                       P(stage_s), P(jrows), rmax, stream),
-        "k2_gn_rows",
+    if p1 <= K2_SMALL_P1:
+        buf, ptrs = _scratch(dev, *stage, 4 * blocks * p1 * p1)
+        cuda_lib.check(lib.k2_gn_small(P(tabc), P(jt), p_dim, P(pk), m, *ptrs, P(hext), stream), "k2_gn_small")
+        return hext
+    rmax = m if max_cells is None else max(1, min(m, int(max_cells)))
+    tiles = -(-p1 // 64)
+    splits = max(1, min(-(-264 // (tiles * tiles)), -(-rmax // 256)))
+    buf, (su, ss, hs, bc, jrows, nrows, partial) = _scratch(
+        dev, *stage, 4 * rmax * p1, 4, 4 * splits * p1 * p1
     )
-    cuda_lib.check(lib.k2_gn_jtj(P(jrows), P(nrows), p1, splits, P(partial), P(hext), stream), "k2_gn_jtj")
+    cuda_lib.check(
+        lib.k2_gn_large(P(tabc), P(jt), p_dim, P(pk), m, su, ss, hs, bc, jrows, rmax, nrows, splits,
+                        partial, P(hext), stream),
+        "k2_gn_large",
+    )
     return hext
+
+
+def gn_system_pieces_ref(tab, dtabs, packed, chunk=K2_CHUNK):
+    """Plain statement of K2's chunk/piece cut (csrc/k2_gn.cu).
+
+    Positions are cut into chunks of `chunk`; a piece is one cell's members
+    within one chunk.  Every piece is summed on its own (u = sum of
+    cot_j . jt[t_j], s = sum of d0, q1 = sum of d0^T wL d0), a cell's sums
+    are its pieces' sums in chunk order, and Hext follows from the valid
+    cells' sums as in gn_system (no mean term).  A chunk hands on at most
+    two pieces: the one that continues a cell from the previous chunk and
+    the one of a cell that starts in it and runs on into the next.
+
+    Returns (Hext [P+1, P+1], staged [n_chunks]: the pieces each chunk
+    hands on).  Memory O(M x P): for tests at small sizes."""
+    m = packed.shape[1]
+    p_dim = dtabs.shape[0]
+    dev = packed.device
+    xs, mu0, lam6, w, tidx, newc, invn_end = _unpack(packed)
+    pos = torch.arange(m, device=dev)
+    run_start = newc > 0.5
+    run = torch.cumsum(run_start.to(torch.int64), 0) - 1
+    cut = run_start | (pos % chunk == 0)
+    piece = torch.cumsum(cut.to(torch.int64), 0) - 1
+    first = torch.nonzero(cut).flatten()  # each piece's first position
+    piece_run = run[first]
+
+    tabf = tab.to(_F32)
+    q = tabf[tidx, 0:4]
+    d0 = (quat_rotate(q, xs) + tabf[tidx, 4:7] - mu0) * w[:, None]
+    wld0 = sym6_matvec(lam6, d0)
+    cot = torch.cat([quat_rotate_vjp_q(q, xs, wld0), wld0], dim=1)
+    u = torch.einsum("mc,mcp->mp", cot, prep_jac_tables(dtabs)[tidx])
+    terms = torch.cat([u, d0, torch.sum(wld0 * d0, dim=1, keepdim=True)], dim=1)
+    pieces = torch.zeros(first.shape[0], p_dim + 4, dtype=_F32, device=dev).index_add_(0, piece, terms)
+    n_runs = int(run[-1]) + 1 if m else 0
+    cells = torch.zeros(n_runs, p_dim + 4, dtype=_F32, device=dev).index_add_(0, piece_run, pieces)
+
+    vend = invn_end > 0
+    ends = torch.nonzero(vend).flatten()
+    sums = cells[run[ends]]
+    sv, lam_e = sums[:, p_dim:p_dim + 3], lam6[ends]
+    val = sums[:, p_dim + 3] - invn_end[ends] * torch.sum(sym6_matvec(lam_e, sv) * sv, dim=1)
+    r = torch.sqrt(torch.abs(val) + 1e-30)
+    jext = torch.cat([(torch.sign(val) / r)[:, None] * sums[:, :p_dim], r[:, None]], dim=1)
+
+    cont = torch.zeros_like(run_start)  # the next position is in the same cell
+    cont[:-1] = ~run_start[1:]
+    head = ~run_start[first] & (first % chunk == 0)
+    last = torch.cat([first[1:], first.new_full((1,), m)]) - 1
+    tail = run_start[first] & cont[last] & ((last + 1) % chunk == 0)
+    staged = torch.zeros(-(-m // chunk), dtype=torch.int64, device=dev)
+    staged.index_add_(0, first // chunk, (head | tail).to(torch.int64))
+    return jext.T @ jext, staged
 
 
 def gn_system_ref(tab, dtabs, packed, include_mean_term=True, chunk=8192):

@@ -9,8 +9,11 @@ a machine that has a CUDA card and no jax:
 `gpu` hold each kernel against its plain version on the same inputs on the
 card, with chip_smoke.py's tolerances, and skip without a card.  The
 others run on the CPU: a wrapper given CPU tensors returns its plain
-version's result and launches nothing, and K2's host-side cut of the cells
-into segments is checked against the packed rows.
+version's result and launches nothing, and the plain statement of K2's
+chunk/piece cut (fused_residuals.gn_system_pieces_ref) is held against the
+plain per-cell normal equations.  On the card, K1's keys are checked bit for
+bit against voxel.voxel_keys on voxel boundaries, and K1 and K2 against
+themselves from one call to the next.
 
 Tolerances: K1's structural rows (local points, validity, table index, run
 starts, 1/count) are exact; cell means to 2e-4 m and lamw6 to 2% of its
@@ -98,35 +101,26 @@ def test_wrappers_take_plain_versions_on_cpu(giant_cell):
     assert all(v == 0 for v in cuda_lib.LAUNCHES.values())
 
 
+@pytest.mark.parametrize("chunk", [32, fr.K2_CHUNK])
 @pytest.mark.parametrize("giant_cell", [False, True])
-def test_k2_segments_partition_valid_cells(giant_cell):
-    """K2's host-side segmentation: every valid cell is cut into contiguous
-    segments of at most K2_SEGMENT members, numbered in order; invalid
-    cells get none; first_sid / vid index each valid cell's first segment
-    and its J row.  Summing u over a cell's segments then gives the cell's
-    u, as in the plain version."""
-    args, _, _ = _problem(4, n=4096, giant_cell=giant_cell)
+def test_k2_piece_cut_gives_cell_sums(giant_cell, chunk):
+    """K2's chunk/piece cut, stated in plain torch: summing every cell's
+    pieces in chunk order gives the normal equations of the plain per-cell
+    sums, each chunk hands on at most two pieces, and with a giant cell one
+    cell spreads over many chunks."""
+    args, dtabs, _ = _problem(4, n=4096, giant_cell=giant_cell)
     pk = fr.build_packed(*args)[0]
-    seg_of, first_sid, vid, nvalid = (nn(a) for a in fr._k2_segments(pk))
+    h, staged = fr.gn_system_pieces_ref(args[-1], dtabs, pk, chunk=chunk)
+    h_r = nn(fr.gn_system_ref(args[-1], dtabs, pk, include_mean_term=False))
+    # the same f32 terms, summed per piece first: f32-class differences
+    np.testing.assert_allclose(nn(h), h_r, rtol=1e-4, atol=1e-5 * np.abs(h_r).max())
+    assert staged.shape[0] == -(-pk.shape[1] // chunk) and int(staged.max()) <= 2
     p = nn(pk)
     starts = np.flatnonzero(p[14] > 0.5)
     ends = np.append(starts[1:], p.shape[1])
-    valid = p[15, ends - 1] > 0
-    assert int(nvalid[0]) == int(valid.sum()) > 0
-    next_sid = 0
-    for k, (a, b) in enumerate(zip(starts, ends)):
-        if not valid[k]:
-            assert np.all(seg_of[a:b] == -1)
-            continue
-        ids = seg_of[a:b]
-        n_seg = -(-(b - a) // fr.K2_SEGMENT)
-        np.testing.assert_array_equal(ids, next_sid + np.arange(b - a) // fr.K2_SEGMENT)
-        assert first_sid[b - 1] == next_sid and seg_of[b - 1] == next_sid + n_seg - 1
-        assert vid[b - 1] == int(valid[:k].sum())
-        next_sid += n_seg
-    assert next_sid <= p.shape[1] // 4 + p.shape[1] // fr.K2_SEGMENT + 1
+    assert int(staged.sum()) > 0
     if giant_cell:
-        assert (ends - starts).max() > 4 * fr.K2_SEGMENT
+        assert (ends - starts)[p[15, ends - 1] > 0].max() > 4 * chunk
 
 
 @pytest.mark.gpu
@@ -180,3 +174,82 @@ def test_k5_matches_plain_on_card():
     assert cnt_r.max() >= 10
     np.testing.assert_allclose(mean, mean_r, atol=2e-6)
     np.testing.assert_allclose(cov, cov_r, atol=1e-5 * np.abs(cov_r).max())
+
+
+def _boundary_points(grid, n_cells=40):
+    """f32 coordinates exactly on voxel boundaries k * grid (as f32) and one
+    ulp either side, in all three axes, with and without a mask."""
+    k = np.arange(-n_cells, n_cells, dtype=np.float32)
+    on = (k * np.float32(grid)).astype(np.float32)
+    c = np.concatenate([on, np.nextafter(on, np.float32(np.inf)), np.nextafter(on, np.float32(-np.inf))])
+    rng = np.random.default_rng(11)
+    pts = np.stack([c, rng.permutation(c), rng.permutation(c)], axis=1).astype(np.float32)
+    mask = rng.uniform(size=len(c)) > 0.1
+    split = rng.integers(0, 6, size=len(c)).astype(np.int32)
+    return pts, mask, split
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid_kind", ["host", "cuda_f32"])
+def test_k1_keys_bitwise_on_voxel_boundaries(grid_kind):
+    """K1's key kernel gives voxel.combined_key(*voxel.voxel_keys(...)) on
+    the card bit for bit, for points on voxel boundaries and one ulp either
+    side, whether the grid is a host number or an f32 device scalar (as the
+    optimizer passes it); a device grid of another type is refused."""
+    from dmsa_lidar_slam_tpu_torch.ops import voxel
+
+    require_cuda()
+    dev = torch.device("cuda")
+    lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(dev)
+    for grid in (0.6, 1.5, 0.3, 0.15 * 2.0, 2.5 * 0.6):
+        pts, mask, split = _boundary_points(grid)
+        pts, mask, split = (torch.as_tensor(a, device=dev) for a in (pts, mask, split))
+        g = grid
+        if grid_kind == "cuda_f32":
+            g = 2.0 * torch.tensor(grid / 2.0, dtype=torch.float32, device=dev)
+            with pytest.raises(ValueError):
+                fr._k1_keys(pts, mask, g.double(), None, lib, stream)
+        for ch in (None, split):
+            key = fr._k1_keys(pts, mask, g, ch, lib, stream)
+            want = voxel.combined_key(*voxel.voxel_keys(pts, mask, g, channel=ch))
+            assert torch.equal(key, want), (grid, grid_kind, ch is not None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("giant_cell", [False, True])
+def test_k1_k2_bitwise_repeatable_on_card(giant_cell):
+    """Two calls with the same inputs give bit-identical packed rows, counts
+    and Hext (no float atomics), at a small and a large P."""
+    require_cuda()
+    dev = torch.device("cuda")
+    args, dtabs, _ = _problem(5, giant_cell=giant_cell)
+    args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
+    a, b = fr.build_packed(*args), fr.build_packed(*args)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    pk, tab = a[0], args[-1]
+    for p_dim in (6, 200):
+        dt = torch.as_tensor(np.random.default_rng(p_dim).standard_normal((p_dim,) + tuple(tab.shape)),
+                             dtype=torch.float32, device=dev)
+        assert torch.equal(fr.gn_system(tab, dt, pk), fr.gn_system(tab, dt, pk)), p_dim
+
+
+@pytest.mark.gpu
+def test_k2_large_p_matches_plain_on_card():
+    """K2's large-P path (P + 1 > K2_SMALL_P1: dense J rows and the tiled
+    J^T J) against the plain version, with a giant cell, at K2's tolerance."""
+    require_cuda()
+    dev = torch.device("cuda")
+    args, _, _ = _problem(6, n=8192, giant_cell=True)
+    args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
+    tab = args[-1]
+    p_dim = 2 * fr.K2_SMALL_P1 + 10
+    dtabs = 0.1 * torch.as_tensor(np.random.default_rng(9).standard_normal((p_dim,) + tuple(tab.shape)),
+                                  dtype=torch.float32, device=dev)
+    dtabs[:, -1] = 0.0
+    pk = fr.build_packed(*args)[0]
+    before = cuda_lib.LAUNCHES["gn_system"]
+    h = nn(fr.gn_system(tab, dtabs, pk, max_cells=pk.shape[1] // 4 + 2))
+    assert cuda_lib.LAUNCHES["gn_system"] == before + 1
+    h_r = nn(fr.gn_system_ref(tab, dtabs, pk, include_mean_term=False))
+    np.testing.assert_allclose(h, h_r, rtol=1e-3, atol=1e-4 * np.abs(h_r).max())
