@@ -18,8 +18,9 @@ printed on its own lines and none of them caught:
      counted from this run's inputs); the steady-state time after 20
      warm-up calls (ms_steady) and the host's time to enqueue one call
      (host_ms); K1's keys bit for bit against voxel.voxel_keys, with the
-     grid as a host number and as a card scalar, and K1 and K2 bit for bit
-     against a second call;
+     grid as a host number and as a card scalar, and K1-K4 bit for bit
+     against a second call; K1 and K3 once more at the window's real
+     masked share (WINDOW_MASKED_SHARE);
   3. the fused pipeline: FusedDmsaSlam on bench_sequence(3) with
      bench_config(), 50 scans of 20,000 points.  Launch counters are zeroed
      just before and read just after; every kernel must have run,
@@ -59,6 +60,11 @@ STEADY_REPS = 20  # warm-up and timed calls of ms_steady and host_ms
 # the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+# Share of the window's K1/K3 positions that are masked on the main path:
+# 1 - valid / slots over the window problem's K1 calls of a fused run on
+# bench_sequence(3) (tools/torch_profile.py --pipeline fused --mask-share;
+# PERF.md).  The other kernel rows mask 5%.
+WINDOW_MASKED_SHARE = 0.5
 
 
 def _bound(n_bytes, n_ops):
@@ -132,9 +138,10 @@ def _profile(fn):
     return busy_us / 1000.0, kernels
 
 
-def _scene_problem(rng, n, dtab, device):
+def _scene_problem(rng, n, dtab, device, masked=0.05):
     """Points on the synthetic room's surfaces, spread over a pose table:
-    world = quat_rotate(q[tidx], xs) + t[tidx] exactly as the kernels read it."""
+    world = quat_rotate(q[tidx], xs) + t[tidx] exactly as the kernels read it;
+    a share `masked` of them masked."""
     import numpy as np
     import torch
 
@@ -156,7 +163,7 @@ def _scene_problem(rng, n, dtab, device):
     qi = tab_t[ti, 0:4]
     qinv = torch.cat([qi[:, :1], -qi[:, 1:]], dim=1)
     xs = rot.quat_rotate(qinv, w_t - tab_t[ti, 4:7])
-    mask = torch.as_tensor(rng.uniform(size=n) > 0.05, device=device)
+    mask = torch.as_tensor(rng.uniform(size=n) > masked, device=device)
     rings = torch.as_tensor(rng.integers(0, 16, size=n), dtype=torch.int32, device=device)
     pts = rot.quat_rotate(tab_t[ti, 0:4], xs) + tab_t[ti, 4:7]
     return pts, mask, rings, xs, ti, tab_t
@@ -195,9 +202,13 @@ def kernel_checks(device):
     packs = {}
     lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(device)
     # K1 at the window (2 x 28,672 over the 502-row dense table) and the
-    # 100-keyframe ring (409,600 points over 101 keyframe rows)
-    for n, dtab, grid in ((28672, 502, 0.6), (409600, 101, 0.6)):
-        pts, mask, rings, xs, ti, tab = _scene_problem(rng, n, dtab, device)
+    # 100-keyframe ring (409,600 points over 101 keyframe rows), then, for
+    # the record, at the window's real masked share (its own seed, so that
+    # the other rows' inputs stay as they were)
+    grid = 0.6
+    for n, dtab, masked, prng in ((28672, 502, 0.05, rng), (409600, 101, 0.05, rng),
+                                  (28672, 502, WINDOW_MASKED_SHARE, np.random.default_rng(1))):
+        pts, mask, rings, xs, ti, tab = _scene_problem(prng, n, dtab, device, masked)
         builds = []
         for factor in (1.0, 2.5):
             # the keys with the grid as a host number and as the optimizer
@@ -234,13 +245,42 @@ def kernel_checks(device):
         record("build_packed", "dmsa_lidar_slam_tpu_torch/csrc/k1_build.cu",
                "dmsa_lidar_slam_tpu/ops/fused_residuals.py:875", max(e for _, e in builds), 2e-2,
                lambda args=args: fr.build_packed(*args), 10, lambda args=args: fr.build_packed_ref(*args), 3,
-               f"n={n}", 101 * n + 32 * dtab, 45 * n + 200 * n_raw)
-        packs[n] = (torch.cat([b[0] for b in builds], dim=1), tab)
+               f"n={n}" + ("" if masked == 0.05 else f" masked={masked}"), 101 * n + 32 * dtab, 45 * n + 200 * n_raw)
+        packs[n, masked] = (torch.cat([b[0] for b in builds], dim=1), tab)
+
+    def k3_row(packed, tab, label=""):
+        """K3 at K = 15 candidates against its plain version, twice for the
+        bits, and timed."""
+        m = packed.shape[1]
+        tabs = []
+        for k in range(15):
+            tk = tab.clone()
+            tk[:-1, 4:7] += 0.002 * k * torch.randn(tab.shape[0] - 1, 3, device=device,
+                                                     generator=torch.Generator(device=device).manual_seed(10 + k))
+            tabs.append(tk)
+        tabs = torch.stack(tabs)
+        e = fr.cand_errors(tabs, packed)
+        assert torch.equal(e, fr.cand_errors(tabs, packed)), "K3: not repeatable"
+        e_r = fr.cand_errors_ref(tabs, packed)
+        torch.cuda.synchronize()
+        # candidate errors are compared with each other: f32-class sums,
+        # relative to each candidate's value
+        err = float(((e - e_r).abs() / e_r.abs().clamp(min=1e-30)).max())
+        # operations: per candidate, ~50 per member of a valid cell
+        # (transform, offset, packed quadratic form, run sums), ~20 per cell
+        m_valid = int(((packed[6:12].abs().sum(0) > 0) & (packed[12] > 0)).sum())
+        n_cells = int((packed[15] > 0).sum())
+        record("cand_errors", "dmsa_lidar_slam_tpu_torch/csrc/k3_cand.cu",
+               "dmsa_lidar_slam_tpu/ops/fused_residuals.py:313", err, 2e-4,
+               lambda tabs=tabs, packed=packed: fr.cand_errors(tabs, packed), 10,
+               lambda tabs=tabs, packed=packed: fr.cand_errors_ref(tabs, packed), 3,
+               f"K=15 Dtab={tab.shape[0]} M={m}{label}", 15 * 32 * tab.shape[0] + 64 * m + 60,
+               15 * (50 * m_valid + 20 * n_cells))
 
     # K2 at the window (P=30, M=57,344) and the 100-keyframe submap
     # (P=594, M=819,200); K3 at K=15 candidates on both
     for n, p_dim in ((28672, 30), (409600, 594)):
-        packed, tab = packs[n]
+        packed, tab = packs[n, 0.05]
         m = packed.shape[1]
         dtabs = 0.1 * torch.randn(p_dim, tab.shape[0], 8, device=device,
                                   generator=torch.Generator(device=device).manual_seed(1))
@@ -263,28 +303,8 @@ def kernel_checks(device):
                5, lambda tab=tab, dtabs=dtabs, packed=packed: fr.gn_system_ref(tab, dtabs, packed, include_mean_term=False),
                2, f"P={p_dim} M={m}", 32 * tab.shape[0] * (1 + p_dim) + 64 * m + 4 * (p_dim + 1) ** 2,
                m_valid * (40 + 14 * p_dim) + 2 * n_cells * (p_dim + 1) ** 2)
-
-        tabs = []
-        for k in range(15):
-            tk = tab.clone()
-            tk[:-1, 4:7] += 0.002 * k * torch.randn(tab.shape[0] - 1, 3, device=device,
-                                                     generator=torch.Generator(device=device).manual_seed(10 + k))
-            tabs.append(tk)
-        tabs = torch.stack(tabs)
-        e = fr.cand_errors(tabs, packed)
-        e_r = fr.cand_errors_ref(tabs, packed)
-        torch.cuda.synchronize()
-        # candidate errors are compared with each other: f32-class sums,
-        # relative to each candidate's value
-        err = float(((e - e_r).abs() / e_r.abs().clamp(min=1e-30)).max())
-        # operations: per candidate, ~50 per member of a valid cell
-        # (transform, offset, packed quadratic form, run sums), ~20 per cell
-        record("cand_errors", "dmsa_lidar_slam_tpu_torch/csrc/k3_cand.cu",
-               "dmsa_lidar_slam_tpu/ops/fused_residuals.py:313", err, 2e-4,
-               lambda tabs=tabs, packed=packed: fr.cand_errors(tabs, packed), 10,
-               lambda tabs=tabs, packed=packed: fr.cand_errors_ref(tabs, packed), 3,
-               f"K=15 Dtab={tab.shape[0]} M={m}", 15 * 32 * tab.shape[0] + 64 * m + 60,
-               15 * (50 * m_valid + 20 * n_cells))
+        k3_row(packed, tab)
+    k3_row(*packs[28672, WINDOW_MASKED_SHARE], f" masked={WINDOW_MASKED_SHARE}")
 
     # K4 at the two static-point queries of a bench scan
     for n_ref, n_q in ((20480, 12288), (8192, 20480)):
@@ -293,6 +313,7 @@ def kernel_checks(device):
         rv = torch.as_tensor(rng.uniform(size=n_ref) > 0.1, device=device)
         qv = torch.as_tensor(rng.uniform(size=n_q) > 0.1, device=device)
         d = nb.min_sq_dist(ref, rv, q, qv)
+        assert torch.equal(d, nb.min_sq_dist(ref, rv, q, qv)), "K4: not repeatable"
         d_r = nb.min_sq_dist_ref(ref, rv, q, qv)
         torch.cuda.synchronize()
         fin = torch.isfinite(d_r)

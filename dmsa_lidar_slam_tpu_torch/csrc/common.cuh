@@ -69,6 +69,58 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Chunk cut of the sorted positions shared by K2 and K3: a warp owns a
+// chunk of kChunk positions; a piece is one cell's (run's) members within
+// one chunk.  A chunk hands on at most two pieces: the head piece, which
+// continues a cell from the previous chunk, and the tail piece, of a cell
+// that starts in the chunk and runs on into the next.
+constexpr int kChunk = 128;
+
+// Run-start flags of the chunk's positions: bit i of word k is position
+// c0 + 32 k + i.
+__device__ __forceinline__ void chunk_starts(const float* __restrict__ pk, int m, int c0,
+                                             unsigned (&sm)[4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = c0 + 32 * k + lane;
+    sm[k] = __ballot_sync(FULL_MASK, j < m && pk[14 * (size_t)m + j] > 0.5f);
+  }
+}
+
+// First run start after position a in the chunk, or c1.
+__device__ __forceinline__ int next_start(const unsigned (&sm)[4], int c0, int a, int c1) {
+  for (int i = a - c0 + 1; i < kChunk;) {
+    const int k = i >> 5;
+    const unsigned w = sm[k] & (~0u << (i & 31));
+    if (w) return min(c1, c0 + 32 * k + __ffs(w) - 1);
+    i = 32 * (k + 1);
+  }
+  return c1;
+}
+
+// Last run start in the chunk, or -1.
+__device__ __forceinline__ int last_start(const unsigned (&sm)[4], int c0) {
+#pragma unroll
+  for (int k = 3; k >= 0; --k)
+    if (sm[k]) return c0 + 32 * k + 31 - __clz(sm[k]);
+  return -1;
+}
+
+// First chunk of the cell that continues into chunk c: the nearest earlier
+// chunk that holds a run start (chunk 0 at the latest), found by a ballot
+// over 32 chunk flags at a time.
+__device__ __forceinline__ int cell_first_chunk(int c, const int* __restrict__ has_start) {
+  const int lane = threadIdx.x & 31;
+  int cs = -1;
+  for (int hi = c - 1; cs < 0; hi -= 32) {
+    const int k = hi - lane;
+    const unsigned bal = __ballot_sync(FULL_MASK, k <= 0 || has_start[k]);
+    if (bal) cs = max(0, hi - (__ffs(bal) - 1));
+  }
+  return cs;
+}
+
 // Eigenvalue-floored inverse of a packed symmetric 3x3 (00,01,02,11,12,22):
 // V diag(1/max(lambda, floor)) V^T by the Newton-form spectral polynomial,
 // the same formula as the reference's eig3.floored_inverse_sym6.

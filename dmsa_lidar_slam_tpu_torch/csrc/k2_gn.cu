@@ -48,41 +48,9 @@
 
 namespace {
 
-constexpr int kChunk = 128;    // positions per chunk (one warp)
-constexpr int kWarps = 4;      // chunks per block
+constexpr int kWarps = 4;      // chunks per block (kChunk positions each, common.cuh)
 constexpr int kSlots = 8;      // J rows per warp and round (small P)
 constexpr int kSmallP1 = 128;  // P + 1 at most for the shared-memory Hext
-
-// Run-start flags of the chunk's positions: bit i of word k is position
-// c0 + 32 k + i.
-__device__ __forceinline__ void chunk_starts(const float* __restrict__ pk, int m, int c0,
-                                             unsigned (&sm)[4]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int j = c0 + 32 * k + lane;
-    sm[k] = __ballot_sync(FULL_MASK, j < m && pk[14 * (size_t)m + j] > 0.5f);
-  }
-}
-
-// First run start after position a in the chunk, or c1.
-__device__ __forceinline__ int next_start(const unsigned (&sm)[4], int c0, int a, int c1) {
-  for (int i = a - c0 + 1; i < kChunk;) {
-    const int k = i >> 5;
-    const unsigned w = sm[k] & (~0u << (i & 31));
-    if (w) return min(c1, c0 + 32 * k + __ffs(w) - 1);
-    i = 32 * (k + 1);
-  }
-  return c1;
-}
-
-// Last run start in the chunk, or -1.
-__device__ __forceinline__ int last_start(const unsigned (&sm)[4], int c0) {
-#pragma unroll
-  for (int k = 3; k >= 0; --k)
-    if (sm[k]) return c0 + 32 * k + 31 - __clz(sm[k]);
-  return -1;
-}
 
 __device__ __forceinline__ int count_valid_ends(const float* __restrict__ pk, int m, int c0) {
   const int lane = threadIdx.x & 31;
@@ -207,12 +175,7 @@ __device__ void spanning_sums(int P, int c, const int* __restrict__ has_start,
                               const float* __restrict__ stage_u,
                               const float4* __restrict__ stage_s, float* u, float4& s) {
   const int lane = threadIdx.x & 31;
-  int cs = -1;  // the cell's first chunk: the nearest earlier one with a run start
-  for (int hi = c - 1; cs < 0; hi -= 32) {
-    const int k = hi - lane;
-    const unsigned bal = __ballot_sync(FULL_MASK, k <= 0 || has_start[k]);
-    if (bal) cs = max(0, hi - (__ffs(bal) - 1));
-  }
+  const int cs = cell_first_chunk(c, has_start);
   for (int p = lane; p < P; p += 32) {
     float acc = stage_u[(size_t)(2 * cs + 1) * P + p];
     for (int k = cs + 1; k < c; ++k) acc += stage_u[(size_t)(2 * k) * P + p];

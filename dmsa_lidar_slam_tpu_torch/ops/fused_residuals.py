@@ -11,7 +11,9 @@ points ride on a trailing identity row).
   K2 gn_system     Hext = [J e]^T [J e] over the cell residuals, [P+1, P+1]:
                    chunk pieces staged, cells summed, Hext reduced, all in
                    3-4 kernel launches
-  K3 cand_errors   line-search errors of K candidate tables, [K]
+  K3 cand_errors   line-search errors of K candidate tables, [K]: chunk
+                   pieces as K2's, cells finished in fixed order, 3
+                   kernel launches
 
 Packed per-point layout [16, M] (the reference's, kept so the tests compare
 like with like):
@@ -394,11 +396,23 @@ def gn_system_ref(tab, dtabs, packed, include_mean_term=True, chunk=8192):
 # --------------------------------------------------------------------------
 
 
+K3_CHUNK = 128  # positions per K3 chunk (one warp), as K2's
+K3_WARPS = 4  # chunks per block of K3's pieces kernel
+K3_SPAN_WARPS = 8  # chunks per block of K3's spanning-cell kernel
+K3_MEMBER_LANES = False  # pieces kernel variant: lanes on members (True) or on candidates
+
+
 def cand_errors(tabs, packed):
     """Total squared DMSA cell residual per candidate pose table.
 
     tabs [K, Dtab, 8] (K <= 16), packed [16, M].  Returns err [K] f32 =
-    sum over valid cells of |q1 - n mean^T wL mean|."""
+    sum over valid cells of |q1 - n mean^T wL mean|.
+
+    On the card (csrc/k3_cand.cu; cand_errors_pieces_ref states the cut in
+    plain torch): a pieces kernel over K3_CHUNK-position chunks that
+    finishes the cells inside a chunk and stages the pieces of the cells
+    that cross chunks, a kernel that finishes those from the staged pieces,
+    and a fixed-order sum of the block partials: 3 launches."""
     if not packed.is_cuda:
         return cand_errors_ref(tabs, packed)
     dev = packed.device
@@ -410,17 +424,73 @@ def cand_errors(tabs, packed):
     cuda_lib.require(pk, "packed", _F32, (PACK_ROWS, m), dev)
     if not 1 <= k <= 16:
         raise ValueError(f"cand_errors takes 1..16 candidates, got {k}")
-    nblocks = max(1, -(-m // 256))
-    partial = torch.empty((nblocks, k), dtype=_F32, device=dev)
+    nchunks = -(-m // K3_CHUNK)
+    nrows = max(1, -(-nchunks // K3_WARPS)) + max(1, -(-nchunks // K3_SPAN_WARPS))
+    # stage [2 nchunks, 16, 4] f32, has_start and span_end [nchunks] int32, partial [nrows, K]
+    buf, ptrs = _scratch(dev, 2 * nchunks * 16 * 16, 4 * nchunks, 4 * nchunks, 4 * nrows * k)
     out = torch.empty(k, dtype=_F32, device=dev)
     lib = cuda_lib.library()
     P = cuda_lib.ptr
     cuda_lib.LAUNCHES["cand_errors"] += 1
     cuda_lib.check(
-        lib.k3_cand_errors(P(tabc), k, dtab, P(pk), m, P(partial), P(out), cuda_lib.stream_ptr(dev)),
+        lib.k3_cand_errors(P(tabc), k, dtab, P(pk), m, *ptrs, P(out), int(K3_MEMBER_LANES),
+                           cuda_lib.stream_ptr(dev)),
         "k3_cand_errors",
     )
     return out
+
+
+def cand_errors_pieces_ref(tabs, packed, chunk=K3_CHUNK):
+    """Plain statement of K3's chunk/piece cut (csrc/k3_cand.cu).
+
+    Positions are cut into chunks of `chunk`; a piece is one cell's members
+    within one chunk.  Every piece's (s, q1) per candidate is summed on its
+    own, a cell's sums are its pieces' sums in chunk order, and err sums
+    |q1 - s^T wL s / n| over the valid cells.  A cell inside one chunk is
+    finished there; a cell that crosses chunks is staged as at most a head
+    piece and a tail piece per chunk and finished by the chunk that holds
+    its end row.
+
+    Returns (err [K], staged [n_chunks]: the pieces each chunk hands on,
+    finished [n_chunks]: the valid cells each chunk finishes from staged
+    pieces)."""
+    m = packed.shape[1]
+    dev = packed.device
+    xs, mu0, lam6, w, tidx, newc, invn_end = _unpack(packed)
+    pos = torch.arange(m, device=dev)
+    run_start = newc > 0.5
+    run = torch.cumsum(run_start.to(torch.int64), 0) - 1
+    cut = run_start | (pos % chunk == 0)
+    piece = torch.cumsum(cut.to(torch.int64), 0) - 1
+    first = torch.nonzero(cut).flatten()  # each piece's first position
+    piece_run = run[first]
+    n_runs = int(run[-1]) + 1 if m else 0
+    vend = invn_end > 0
+    ends = torch.nonzero(vend).flatten()
+    lam_e, invn = lam6[ends], invn_end[ends]
+    err = []
+    for k in range(tabs.shape[0]):
+        d0 = (_world_points(tabs[k], xs, tidx) - mu0) * w[:, None]
+        terms = torch.cat([d0, torch.sum(sym6_matvec(lam6, d0) * d0, dim=1, keepdim=True)], dim=1)
+        pieces = torch.zeros(first.shape[0], 4, dtype=_F32, device=dev).index_add_(0, piece, terms)
+        cells = torch.zeros(n_runs, 4, dtype=_F32, device=dev).index_add_(0, piece_run, pieces)
+        sums = cells[run[ends]]
+        sv = sums[:, :3]
+        err.append(torch.sum(torch.abs(sums[:, 3] - invn * torch.sum(sym6_matvec(lam_e, sv) * sv, dim=1))))
+
+    cont = torch.zeros_like(run_start)  # the next position is in the same cell
+    cont[:-1] = ~run_start[1:]
+    head = ~run_start[first] & (first % chunk == 0)
+    last = torch.cat([first[1:], first.new_full((1,), m)]) - 1
+    tail = run_start[first] & cont[last] & ((last + 1) % chunk == 0)
+    n_chunks = -(-m // chunk)
+    staged = torch.zeros(n_chunks, dtype=torch.int64, device=dev)
+    staged.index_add_(0, first // chunk, (head | tail).to(torch.int64))
+    # a valid cell that crosses chunks ends in a head piece
+    span_end = head & ~cont[last] & vend[last]
+    finished = torch.zeros(n_chunks, dtype=torch.int64, device=dev)
+    finished.index_add_(0, last // chunk, span_end.to(torch.int64))
+    return torch.stack(err), staged, finished
 
 
 def cand_errors_ref(tabs, packed):

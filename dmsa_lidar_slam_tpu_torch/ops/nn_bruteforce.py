@@ -2,9 +2,10 @@
 (counterpart of dmsa_lidar_slam_tpu/ops/nn_bruteforce.py).
 
 K4 (min_sq_dist, has_neighbor_within): the exact squared distance to the
-nearest valid reference, |q - r|^2 computed directly (csrc/k4_nn.cu);
-invalid references never win, invalid queries get +inf, as do all queries
-when no reference is valid.
+nearest valid reference, |q - r|^2 computed directly (csrc/k4_nn.cu: one
+kernel over query tiles x reference splits, minima combined exactly by
+atomicMin on the f32 bits); invalid references never win, invalid queries
+get +inf, as do all queries when no reference is valid.
 
 K5 (radius_neighbor_moments): per valid point, the count, mean and
 covariance of the valid points within a radius, self included, with the
@@ -21,19 +22,20 @@ _F32 = torch.float32
 def min_sq_dist(ref_pts, ref_valid, queries, query_valid):
     """Squared distance [Q] from each query to the nearest valid reference.
 
-    ref_pts [N, 3], ref_valid [N] bool, queries [Q, 3], query_valid [Q]."""
+    ref_pts [N, 3], ref_valid [N] bool, queries [Q, 3], query_valid [Q]
+    bool."""
     if not queries.is_cuda:
         return min_sq_dist_ref(ref_pts, ref_valid, queries, query_valid)
     dev = queries.device
     r = ref_pts.to(_F32).contiguous()
     q = queries.to(_F32).contiguous()
-    rv = ref_valid.to(torch.uint8).contiguous()
-    qv = query_valid.to(torch.uint8).contiguous()
+    rv, qv = (v.contiguous() if v.dtype == torch.bool else (v != 0).contiguous() for v in (ref_valid, query_valid))
     n, nq = r.shape[0], q.shape[0]
     cuda_lib.require(r, "ref_pts", _F32, (n, 3), dev)
     cuda_lib.require(q, "queries", _F32, (nq, 3), dev)
-    cuda_lib.require(rv, "ref_valid", torch.uint8, (n,), dev)
-    cuda_lib.require(qv, "query_valid", torch.uint8, (nq,), dev)
+    # torch.bool is one byte, 0 or 1: the kernel reads bool masks as they are
+    cuda_lib.require(rv, "ref_valid", torch.bool, (n,), dev)
+    cuda_lib.require(qv, "query_valid", torch.bool, (nq,), dev)
     out = torch.empty(nq, dtype=_F32, device=dev)
     P = cuda_lib.ptr
     cuda_lib.LAUNCHES["min_sq_dist"] += 1

@@ -26,14 +26,15 @@ from dmsa_lidar_slam_tpu_torch.ops import gaussians as tg
 from tests.torch_parity import nn, tt
 
 
-def _problem(seed=0, n=1024, dtab=34, grid=1.0, giant_cell=False):
+def _problem(seed=0, n=1024, dtab=34, grid=1.0, giant_cell=False, masked=0.1):
     """The reference test's random indexed-affine problem (cells built on
-    the transformed world points), as numpy."""
+    the transformed world points), as numpy; a share `masked` of the points
+    is masked."""
     rng = np.random.default_rng(seed)
     xs = rng.uniform(0, 4, size=(n, 3)).astype(np.float32)
     if giant_cell:
         xs[: n // 2] = 0.5 + 0.2 * rng.standard_normal((n // 2, 3)).astype(np.float32)
-    mask = rng.uniform(size=n) > 0.1
+    mask = rng.uniform(size=n) > masked
     rings = rng.integers(0, 8, size=n).astype(np.int32)
     tidx = rng.integers(0, dtab - 1, size=n).astype(np.int32)
     tidx[n // 8 :: 7] = dtab - 1
@@ -127,6 +128,25 @@ def test_cand_errors(giant_cell):
     want_ref = np.asarray(jfr.cand_errors_ref(jnp.asarray(tabs), jnp.asarray(packed)))
     want_kernel = np.asarray(jfr.cand_errors(jnp.asarray(tabs), jnp.asarray(packed)))
     got = nn(tfr.cand_errors(tt(tabs), tt(packed)))
+    np.testing.assert_allclose(got, want_ref, rtol=2e-4)
+    np.testing.assert_allclose(got, want_kernel, rtol=2e-4)
+
+
+@pytest.mark.parametrize("case", [{}, {"giant_cell": True}, {"masked": 0.6}], ids=["cells", "giant_cell", "long_masked_run"])
+def test_cand_errors_pieces_ref(case):
+    """The plain statement of K3's chunk/piece cut (the sums the card's
+    kernels form, in their order) against the reference's XLA reference and
+    its interpreted kernel, rtol 2e-4 as test_cand_errors; with a masked
+    run longer than several chunks."""
+    rng, xs, mask, rings, tidx, tab0, world, packed, rand_tab = _problem(seed=3, **case)
+    tabs = np.stack([tab0] + [rand_tab(0.1) for _ in range(4)])
+    if "masked" in case:
+        starts = np.flatnonzero(packed[14] > 0.5)
+        lengths = np.append(starts[1:], packed.shape[1]) - starts
+        assert lengths[packed[12, starts] == 0].max() > 4 * tfr.K3_CHUNK
+    want_ref = np.asarray(jfr.cand_errors_ref(jnp.asarray(tabs), jnp.asarray(packed)))
+    want_kernel = np.asarray(jfr.cand_errors(jnp.asarray(tabs), jnp.asarray(packed)))
+    got = nn(tfr.cand_errors_pieces_ref(tt(tabs), tt(packed))[0])
     np.testing.assert_allclose(got, want_ref, rtol=2e-4)
     np.testing.assert_allclose(got, want_kernel, rtol=2e-4)
 

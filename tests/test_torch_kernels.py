@@ -11,9 +11,11 @@ card, with chip_smoke.py's tolerances, and skip without a card.  The
 others run on the CPU: a wrapper given CPU tensors returns its plain
 version's result and launches nothing, and the plain statement of K2's
 chunk/piece cut (fused_residuals.gn_system_pieces_ref) is held against the
-plain per-cell normal equations.  On the card, K1's keys are checked bit for
-bit against voxel.voxel_keys on voxel boundaries, and K1 and K2 against
-themselves from one call to the next.
+plain per-cell normal equations, as is K3's (cand_errors_pieces_ref)
+against the plain candidate errors.  On the card, K1's keys are checked bit
+for bit against voxel.voxel_keys on voxel boundaries, K1-K4 against
+themselves from one call to the next, K3 at 1 and 16 candidates, and K4
+at ragged counts, a large masked share and with no valid reference.
 
 Tolerances: K1's structural rows (local points, validity, table index, run
 starts, 1/count) are exact; cell means to 2e-4 m and lamw6 to 2% of its
@@ -37,15 +39,16 @@ from dmsa_lidar_slam_tpu_torch.ops import nn_bruteforce as nb
 from tests.torch_parity import nn, require_cuda
 
 
-def _problem(seed, n=4096, dtab=34, giant_cell=False):
+def _problem(seed, n=4096, dtab=34, giant_cell=False, masked=0.1):
     """A random indexed-affine problem: points on a pose table, the last
     row the identity (static points), optionally half of them in one
-    voxel."""
+    voxel; a share `masked` of the points is masked (one run with no
+    weight)."""
     rng = np.random.default_rng(seed)
     xs = rng.uniform(0, 4, size=(n, 3)).astype(np.float32)
     if giant_cell:
         xs[: n // 2] = 0.5 + 0.2 * rng.standard_normal((n // 2, 3)).astype(np.float32)
-    mask = rng.uniform(size=n) > 0.1
+    mask = rng.uniform(size=n) > masked
     rings = rng.integers(0, 8, size=n).astype(np.int32)
     tidx = rng.integers(0, dtab - 1, size=n)
     tidx[n // 8 :: 7] = dtab - 1
@@ -68,11 +71,12 @@ def _problem(seed, n=4096, dtab=34, giant_cell=False):
     return args, dtabs, tabs
 
 
-def _clouds(seed, n_ref, n_q, extent=10.0):
+def _clouds(seed, n_ref, n_q, extent=10.0, invalid=0.2):
     rng = np.random.default_rng(seed)
     ref = torch.as_tensor(rng.uniform(-extent, extent, (n_ref, 3)), dtype=torch.float32)
     q = torch.as_tensor(rng.uniform(-extent, extent, (n_q, 3)), dtype=torch.float32)
-    return ref, torch.as_tensor(rng.uniform(size=n_ref) > 0.2), q, torch.as_tensor(rng.uniform(size=n_q) > 0.2)
+    return (ref, torch.as_tensor(rng.uniform(size=n_ref) > invalid), q,
+            torch.as_tensor(rng.uniform(size=n_q) > invalid))
 
 
 def _cmp_packed(pk, pk_ref):
@@ -121,6 +125,34 @@ def test_k2_piece_cut_gives_cell_sums(giant_cell, chunk):
     assert int(staged.sum()) > 0
     if giant_cell:
         assert (ends - starts)[p[15, ends - 1] > 0].max() > 4 * chunk
+
+
+K3_CASES = {"cells": {}, "giant_cell": {"giant_cell": True}, "long_masked_run": {"masked": 0.4}}
+
+
+@pytest.mark.parametrize("chunk", [32, fr.K3_CHUNK])
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_k3_piece_cut_gives_cell_errors(case, chunk):
+    """K3's chunk/piece cut, stated in plain torch: summing every cell's
+    pieces in chunk order gives the plain per-cell candidate errors (the
+    same f32 terms, summed per piece first: rtol 1e-5), each chunk hands on
+    at most two pieces, and cells that cross chunks are finished from
+    them.  With a giant cell one valid cell spreads over many chunks; with
+    a long masked run one run with no weight spreads over several."""
+    args, _, tabs = _problem(4, n=4096, **K3_CASES[case])
+    pk = fr.build_packed(*args)[0]
+    err, staged, finished = fr.cand_errors_pieces_ref(tabs, pk, chunk=chunk)
+    np.testing.assert_allclose(nn(err), nn(fr.cand_errors_ref(tabs, pk)), rtol=1e-5)
+    n_chunks = -(-pk.shape[1] // chunk)
+    assert staged.shape[0] == finished.shape[0] == n_chunks and int(staged.max()) <= 2
+    assert int(finished.sum()) > 0 and int(finished.max()) <= 1
+    p = nn(pk)
+    starts = np.flatnonzero(p[14] > 0.5)
+    lengths = np.append(starts[1:], p.shape[1]) - starts
+    if case == "giant_cell":
+        assert lengths[p[15, starts + lengths - 1] > 0].max() > 4 * chunk
+    if case == "long_masked_run":
+        assert lengths[p[12, starts] == 0].max() > 4 * chunk
 
 
 @pytest.mark.gpu
@@ -253,3 +285,74 @@ def test_k2_large_p_matches_plain_on_card():
     assert cuda_lib.LAUNCHES["gn_system"] == before + 1
     h_r = nn(fr.gn_system_ref(tab, dtabs, pk, include_mean_term=False))
     np.testing.assert_allclose(h, h_r, rtol=1e-3, atol=1e-4 * np.abs(h_r).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("member_lanes", [False, True])
+@pytest.mark.parametrize("k", [1, 16])
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_k3_candidates_match_plain_on_card(case, k, member_lanes, monkeypatch):
+    """K3 at 1 and 16 candidates (the contract's ends) against its plain
+    version, with cells that cross chunks and a masked run over several
+    chunks, at K3's tolerance (2e-4 relative)."""
+    require_cuda()
+    monkeypatch.setattr(fr, "K3_MEMBER_LANES", member_lanes)
+    dev = torch.device("cuda")
+    args, _, tabs = _problem(12, n=6000, **K3_CASES[case])
+    args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
+    pk = fr.build_packed(*args)[0]
+    rng = np.random.default_rng(k)
+    tk = tabs[rng.integers(0, tabs.shape[0], size=k)].to(dev)
+    tk[:, :-1, 4:7] += torch.as_tensor(0.01 * rng.standard_normal((k, tk.shape[1] - 1, 3)), dtype=torch.float32,
+                                       device=dev)
+    before = cuda_lib.LAUNCHES["cand_errors"]
+    e = nn(fr.cand_errors(tk, pk))
+    assert cuda_lib.LAUNCHES["cand_errors"] == before + 1
+    np.testing.assert_allclose(e, nn(fr.cand_errors_ref(tk, pk)), rtol=2e-4)
+    with pytest.raises(ValueError):
+        fr.cand_errors(torch.cat([tk] * (17 // k + 1))[:17], pk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("member_lanes", [False, True])
+def test_k3_k4_bitwise_repeatable_on_card(member_lanes, monkeypatch):
+    """Two calls with the same inputs give bit-identical candidate errors
+    (fixed-order sums, no float atomics) and nearest distances (atomicMin
+    on the f32 bits is exact in any order)."""
+    require_cuda()
+    monkeypatch.setattr(fr, "K3_MEMBER_LANES", member_lanes)
+    dev = torch.device("cuda")
+    args, _, tabs = _problem(13, n=8192, giant_cell=True, masked=0.3)
+    args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
+    pk, tabs = fr.build_packed(*args)[0], tabs.to(dev)
+    assert torch.equal(fr.cand_errors(tabs, pk), fr.cand_errors(tabs, pk))
+    ref, rv, q, qv = (a.to(dev) for a in _clouds(14, 20000, 9000))
+    assert torch.equal(nb.min_sq_dist(ref, rv, q, qv), nb.min_sq_dist(ref, rv, q, qv))
+
+
+K4_CASES = {  # (refs, queries, invalid share): counts off every tile size
+    "ragged": (1237, 3001, 0.2),
+    "one_reference": (1, 129, 0.2),
+    "mostly_masked": (5003, 2049, 0.9),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(K4_CASES))
+def test_k4_edges_on_card(case):
+    """K4 against its plain version where the counts are not multiples of
+    any tile, where most points are masked, and with no valid reference
+    (every query +inf); one launch per call, masks passed as bool."""
+    require_cuda()
+    dev = torch.device("cuda")
+    n_ref, n_q, invalid = K4_CASES[case]
+    ref, rv, q, qv = (a.to(dev) for a in _clouds(15, n_ref, n_q, invalid=invalid))
+    before = cuda_lib.LAUNCHES["min_sq_dist"]
+    d = nn(nb.min_sq_dist(ref, rv, q, qv))
+    assert cuda_lib.LAUNCHES["min_sq_dist"] == before + 1
+    d_r = nn(nb.min_sq_dist_ref(ref, rv, q, qv))
+    fin = np.isfinite(d_r)
+    np.testing.assert_array_equal(np.isfinite(d), fin)
+    np.testing.assert_allclose(d[fin], d_r[fin], rtol=1e-6, atol=1e-6)
+    assert np.all(d >= 0)
+    assert np.all(np.isinf(nn(nb.min_sq_dist(ref, torch.zeros_like(rv), q, qv))))

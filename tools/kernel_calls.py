@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Time the K1 (build_packed) and K2 (gn_system) calls of the PyTorch port
-at chip_smoke.py's shapes, for this checkout or another one.
+"""Time the K1-K4 calls (build_packed, gn_system, cand_errors, min_sq_dist)
+of the PyTorch port at chip_smoke.py's shapes, for this checkout or another
+one.
 
     python3 tools/kernel_calls.py
     python3 tools/kernel_calls.py --root path/to/other/checkout
 
 The inputs are chip_smoke.py's scene problems (the same seeds): K1 at n =
 28,672 and 409,600 (the grid 1.5 m as the optimizer passes it, an f32
-scalar on the card), K2 at P = 30 over the window's packed rows and P = 594
-over the 100-keyframe ring's, and the stable torch.sort of K1's keys at n =
-28,672 on its own.  For each call it prints one JSON line, each number from
-chip_smoke.py's own helpers:
+scalar on the card) and at n = 28,672 with the window's real masked share
+(chip_smoke.WINDOW_MASKED_SHARE), K2 at P = 30 over the window's packed
+rows and P = 594 over the 100-keyframe ring's, K3 at K = 15 over each of
+the three packed inputs, K4 at chip_smoke's two static-point queries, and
+the stable torch.sort of K1's keys at n = 28,672 on its own.  For each call
+it prints one JSON line, each number from chip_smoke.py's own helpers:
 
   ms               CUDA events after one warm-up call, over chip_smoke's
                    reps (K1 10, K2 5, the sort 10): chip_smoke's ms;
@@ -54,6 +57,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--tag", default="")
+    ap.add_argument("--k3-member-lanes", action="store_true",
+                    help="K3's pieces kernel with lanes on members (fused_residuals.K3_MEMBER_LANES)")
     args = ap.parse_args(argv)
     smoke = _load_smoke()
     sys.path.insert(0, os.path.abspath(args.root))
@@ -65,30 +70,53 @@ def main(argv=None):
         raise SystemExit("kernel_calls: needs a CUDA card")
     from dmsa_lidar_slam_tpu_torch.ops import cuda_lib, voxel
     from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
+    from dmsa_lidar_slam_tpu_torch.ops import nn_bruteforce as nb
+
+    if args.k3_member_lanes:
+        fr.K3_MEMBER_LANES = True
 
     dev = torch.device("cuda", 0)
     cuda_lib.library()
     rng = np.random.default_rng(0)
     packs = {}
     rows = []
-    for n, dtab in ((28672, 502), (409600, 101)):
-        pts, mask, rings, xs, ti, tab = smoke._scene_problem(rng, n, dtab, dev)
+    share = smoke.WINDOW_MASKED_SHARE
+    for n, dtab, masked, prng in ((28672, 502, 0.05, rng), (409600, 101, 0.05, rng),
+                                  (28672, 502, share, np.random.default_rng(1))):
+        pts, mask, rings, xs, ti, tab = smoke._scene_problem(prng, n, dtab, dev, masked)
         grids = [f * torch.tensor(0.6, dtype=torch.float32, device=dev) for f in (1.0, 2.5)]
         pk = [fr.build_packed(pts, mask, rings, xs, ti, g, 10, tab)[0] for g in grids]
-        packs[n] = (torch.cat(pk, dim=1), tab)
+        packs[n, masked] = (torch.cat(pk, dim=1), tab)
         k1_args = (pts, mask, rings, xs, ti, grids[1], 10, tab)
-        rows.append(("build_packed", f"n={n}", lambda a=k1_args: fr.build_packed(*a), 10))
-        if n == 28672:
+        label = "" if masked == 0.05 else f" masked={masked}"
+        rows.append(("build_packed", f"n={n}{label}", lambda a=k1_args: fr.build_packed(*a), 10))
+        if n == 28672 and masked == 0.05:
             key = voxel.combined_key(*voxel.voxel_keys(pts, mask, grids[1]))
             rows.append(("torch.sort", f"K1 keys n={n}", lambda k=key: torch.sort(k, stable=True), 10))
     for n, p_dim in ((28672, 30), (409600, 594)):
-        packed, tab = packs[n]
+        packed, tab = packs[n, 0.05]
         dtabs = 0.1 * torch.randn(p_dim, tab.shape[0], 8, device=dev,
                                   generator=torch.Generator(device=dev).manual_seed(1))
         dtabs[:, -1, :] = 0.0
         mc = packed.shape[1] // 10 + 2
         rows.append(("gn_system", f"P={p_dim} M={packed.shape[1]}",
                      lambda t=tab, d=dtabs, p=packed, mc=mc: fr.gn_system(t, d, p, max_cells=mc), 5))
+    for (n, masked), (packed, tab) in packs.items():
+        # chip_smoke's 15 candidate tables
+        tabs = torch.stack([tab] + [tab.clone() for _ in range(14)])
+        for k in range(1, 15):
+            tabs[k, :-1, 4:7] += 0.002 * k * torch.randn(tab.shape[0] - 1, 3, device=dev,
+                                                         generator=torch.Generator(device=dev).manual_seed(10 + k))
+        label = "" if masked == 0.05 else f" masked={masked}"
+        rows.append(("cand_errors", f"K=15 Dtab={tab.shape[0]} M={packed.shape[1]}{label}",
+                     lambda t=tabs, p=packed: fr.cand_errors(t, p), 10))
+    for n_ref, n_q in ((20480, 12288), (8192, 20480)):
+        # chip_smoke's clouds for K4 (another stream of the same generator)
+        ref = torch.as_tensor(30 * rng.uniform(-1, 1, (n_ref, 3)), dtype=torch.float32, device=dev)
+        q = torch.as_tensor(30 * rng.uniform(-1, 1, (n_q, 3)), dtype=torch.float32, device=dev)
+        rv = torch.as_tensor(rng.uniform(size=n_ref) > 0.1, device=dev)
+        qv = torch.as_tensor(rng.uniform(size=n_q) > 0.1, device=dev)
+        rows.append(("min_sq_dist", f"refs={n_ref} queries={n_q}", lambda a=(ref, rv, q, qv): nb.min_sq_dist(*a), 20))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     steady = smoke.STEADY_REPS
@@ -97,6 +125,7 @@ def main(argv=None):
     for (name, shape, fn, _), (ms, ms_steady, host_ms) in zip(rows, timed):
         device_ms, kernels = smoke._profile(fn)
         print(json.dumps(dict(tag=args.tag, root=os.path.abspath(args.root), card=smi, kernel=name, shape=shape,
+                              k3_member_lanes=args.k3_member_lanes,
                               ms=ms, ms_steady=ms_steady, host_ms=host_ms, device_ms=device_ms,
                               device_launches=sum(c for c, _ in kernels.values()), kernels=kernels)), flush=True)
 

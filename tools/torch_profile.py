@@ -22,7 +22,12 @@ line:
                        the top kernels by device time.  Reading the trace
                        costs minutes at ~10^5 launches per scan, so keep
                        --profile small;
-  launches             the port's own kernel counters over the whole run.
+  launches             the port's own kernel counters over the whole run;
+  k1_masked_share      with --mask-share (fused pipeline): per K1 input
+                       size n, the K1 calls and the share of their n slots
+                       that are masked (1 - valid / n, over all calls).
+                       Counting syncs once per K1 call, so keep it out of
+                       timed runs.
 
 --root imports the port from another checkout, so that two commits can be
 compared in one run on one card.  Needs a CUDA card; exits non-zero
@@ -43,6 +48,7 @@ def main(argv=None):
     ap.add_argument("--profile", type=int, default=1, help="profile the last N scans (0: none)")
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--top", type=int, default=8)
+    ap.add_argument("--mask-share", action="store_true", help="count the masked share of K1's inputs")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -73,6 +79,20 @@ def main(argv=None):
         slam = FusedDmsaSlam(bench_config(), flush_every=20, device=dev)
     cuda_lib.library()
     cuda_lib.reset_launches()
+    masks = {}  # K1 input size n -> [calls, slots, valid]
+    if args.mask_share:
+        from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
+
+        build = fr.build_packed
+
+        def counted(points_w, mask, *rest, **kw):
+            c = masks.setdefault(int(mask.shape[0]), [0, 0, 0])
+            c[0] += 1
+            c[1] += int(mask.shape[0])
+            c[2] += int(mask.sum())
+            return build(points_w, mask, *rest, **kw)
+
+        fr.build_packed = counted
 
     a, b = args.scans - args.profile, args.scans
     walls, prof, prof_wall = [], None, 0.0
@@ -136,6 +156,8 @@ def main(argv=None):
         wall_ms_per_scan=1000.0 * sum(timed) / max(len(timed), 1),
         **prof_out,
         launches=dict(cuda_lib.LAUNCHES),
+        **({"k1_masked_share": {n: dict(calls=c, masked_share=1.0 - v / s) for n, (c, s, v) in sorted(masks.items())}}
+           if args.mask_share else {}),
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
     print(json.dumps(out), flush=True)
