@@ -52,52 +52,6 @@ __device__ __forceinline__ float cell_val(const float* lam, float invn, float4 s
   return s.w - invn * (cx * s.x + cy * s.y + cz * s.z);
 }
 
-// Variant with lanes on members: each lane sums its members' (s, q1) for
-// all K candidates, then a reduce-scatter butterfly (62 shuffles) leaves
-// components 2l, 2l+1 of the flattened [16][4] sums in lane l.
-__device__ float4 piece_sums_members(const Member* __restrict__ rows, unsigned live,
-                                     const float* __restrict__ tabs, int K, int dtab, int lo,
-                                     int hi) {
-  const int lane = threadIdx.x & 31;
-  float v[4 * kMaxK];
-#pragma unroll
-  for (int i = 0; i < 4 * kMaxK; ++i) v[i] = 0.f;
-  for (int g = lo >> 5; g <= (hi - 1) >> 5; ++g) {
-    const int i = 32 * g + lane;
-    if (!((live >> g) & 1u) || i < lo || i >= hi) continue;
-    const Member r = rows[i];
-    const float lam[6] = {r.c.x, r.c.y, r.c.z, r.c.w, r.d.x, r.d.y};
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      if (k < K) {
-        const Pose ps = load_pose(tabs + (size_t)k * dtab * 8, __float_as_int(r.b.w));
-        float px, py, pz;
-        transform(ps, r.a.x, r.a.y, r.a.z, px, py, pz);
-        const float dx = (px - r.b.x) * r.a.w, dy = (py - r.b.y) * r.a.w, dz = (pz - r.b.z) * r.a.w;
-        float lx, ly, lz;
-        sym6_mv(lam, dx, dy, dz, lx, ly, lz);
-        v[4 * k] += dx;
-        v[4 * k + 1] += dy;
-        v[4 * k + 2] += dz;
-        v[4 * k + 3] += lx * dx + ly * dy + lz * dz;
-      }
-    }
-  }
-#pragma unroll
-  for (int half = 32, bit = 16; bit >= 1; half >>= 1, bit >>= 1) {
-    const bool up = lane & bit;
-#pragma unroll
-    for (int i = 0; i < half; ++i) {
-      const float send = up ? v[i] : v[i + half];
-      const float keep = up ? v[i + half] : v[i];
-      v[i] = keep + __shfl_xor_sync(FULL_MASK, send, bit);
-    }
-  }
-  const int src = 2 * (lane & 15);
-  return make_float4(__shfl_sync(FULL_MASK, v[0], src), __shfl_sync(FULL_MASK, v[1], src),
-                     __shfl_sync(FULL_MASK, v[0], src + 1), __shfl_sync(FULL_MASK, v[1], src + 1));
-}
-
 // Sums (s, q1) over the members lo..hi-1 (chunk offsets) of one cell for
 // candidate k = lane & 15: lane k + 16 h takes offsets lo + h, lo + h + 2,
 // ...; groups of 32 with no weight (bit clear in `live`) are skipped.
@@ -147,7 +101,6 @@ __device__ __forceinline__ void block_partial(float acc, int K, float (*swarp)[k
   }
 }
 
-template <bool kMemberLanes>
 __global__ void __launch_bounds__(32 * kWarps)
     cand_pieces(const float* __restrict__ tabs, int K, int dtab, const float* __restrict__ pk,
                 int m, int nchunks, float4* __restrict__ stage, int* __restrict__ has_start,
@@ -195,14 +148,12 @@ __global__ void __launch_bounds__(32 * kWarps)
         // and the tail piece (slot 1); a head piece that ends an invalid
         // cell here is never read
         if (tail || valid_end) {
-          const float4 s = kMemberLanes ? piece_sums_members(rows, live, tabs, K, dtab, a - c0, b - c0)
-                                          : piece_sums(rows, live, tab, a - c0, b - c0);
+          const float4 s = piece_sums(rows, live, tab, a - c0, b - c0);
           if (lane < kMaxK) stage[(size_t)(2 * c + (head ? 0 : 1)) * kMaxK + lane] = s;
         }
         if (head && !tail && valid_end) head_end = b - 1;
       } else if (valid_end) {  // a cell inside the chunk
-        const float4 s = kMemberLanes ? piece_sums_members(rows, live, tabs, K, dtab, a - c0, b - c0)
-                                          : piece_sums(rows, live, tab, a - c0, b - c0);
+        const float4 s = piece_sums(rows, live, tab, a - c0, b - c0);
         const float lam[6] = {er.c.x, er.c.y, er.c.z, er.c.w, er.d.x, er.d.y};
         acc += fabsf(cell_val(lam, er.d.z, s));
       }
@@ -267,15 +218,14 @@ __global__ void cand_final(const float* __restrict__ partial, int nrows, int K,
 // span_end [nchunks] int32, partial [pieces blocks + spans blocks, K] f32.
 extern "C" int k3_cand_errors(const float* tabs, int K, int dtab, const float* packed, int m,
                               float* stage, int* has_start, int* span_end, float* partial,
-                              float* out, int member_lanes, cudaStream_t stream) {
+                              float* out, cudaStream_t stream) {
   if (K > kMaxK || K < 1) return (int)cudaErrorInvalidValue;
   const int nchunks = (m + kChunk - 1) / kChunk;
   const int blocks = max(1, (nchunks + kWarps - 1) / kWarps);
   const int span_blocks = max(1, (nchunks + kSpanWarps - 1) / kSpanWarps);
-  auto pieces = member_lanes ? cand_pieces<true> : cand_pieces<false>;
-  pieces<<<blocks, 32 * kWarps, 0, stream>>>(tabs, K, dtab, packed, m, nchunks,
-                                             reinterpret_cast<float4*>(stage), has_start, span_end,
-                                             partial);
+  cand_pieces<<<blocks, 32 * kWarps, 0, stream>>>(tabs, K, dtab, packed, m, nchunks,
+                                                  reinterpret_cast<float4*>(stage), has_start,
+                                                  span_end, partial);
   int err = (int)cudaGetLastError();
   if (err) return err;
   cand_spans<<<span_blocks, 32 * kSpanWarps, 0, stream>>>(

@@ -43,8 +43,8 @@ _SIGNATURES = {
     # tab, jt, P, packed, m, stage_u, stage_s, has_start, block_cnt, jrows, rmax, nrows, splits,
     # partial, hext, stream
     "k2_gn_large": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
-    # tabs, K, dtab, packed, m, stage, has_start, span_end, partial, out, member_lanes, stream
-    "k3_cand_errors": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P],
+    # tabs, K, dtab, packed, m, stage, has_start, span_end, partial, out, stream
+    "k3_cand_errors": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
     # ref, rvalid, n, q, qvalid, nq, out, stream
     "k4_min_sq_dist": [_P, _P, _I, _P, _P, _I, _P, _P],
     # pts, valid, n, rho2, cnt, mean, cov, stream

@@ -269,6 +269,32 @@ def gn_system(tab, dtabs, packed, max_cells=None):
     return hext
 
 
+def _chunk_pieces(run_start, chunk):
+    """The chunk/piece cut shared by K2 and K3 (common.cuh): positions cut
+    into chunks of `chunk`, a piece one run's members within one chunk.
+
+    Returns (run [M], piece [M]: ids per position; first, last [pieces]:
+    each piece's first and last position; head [pieces]: the piece
+    continues a run from the previous chunk; ends_run [pieces]: the run
+    ends at the piece's last position; staged [n_chunks]: the pieces each
+    chunk hands on, its head piece and the tail piece of a run that starts
+    in it and goes on into the next)."""
+    m = run_start.shape[0]
+    pos = torch.arange(m, device=run_start.device)
+    run = torch.cumsum(run_start.to(torch.int64), 0) - 1
+    cut = run_start | (pos % chunk == 0)
+    piece = torch.cumsum(cut.to(torch.int64), 0) - 1
+    first = torch.nonzero(cut).flatten()
+    last = torch.cat([first[1:], first.new_full((1,), m)]) - 1
+    cont = torch.zeros_like(run_start)  # the next position is in the same run
+    cont[:-1] = ~run_start[1:]
+    head = ~run_start[first] & (first % chunk == 0)
+    tail = run_start[first] & cont[last] & ((last + 1) % chunk == 0)
+    staged = torch.zeros(-(-m // chunk), dtype=torch.int64, device=run_start.device)
+    staged.index_add_(0, first // chunk, (head | tail).to(torch.int64))
+    return run, piece, first, last, head, ~cont[last], staged
+
+
 def gn_system_pieces_ref(tab, dtabs, packed, chunk=K2_CHUNK):
     """Plain statement of K2's chunk/piece cut (csrc/k2_gn.cu).
 
@@ -286,12 +312,7 @@ def gn_system_pieces_ref(tab, dtabs, packed, chunk=K2_CHUNK):
     p_dim = dtabs.shape[0]
     dev = packed.device
     xs, mu0, lam6, w, tidx, newc, invn_end = _unpack(packed)
-    pos = torch.arange(m, device=dev)
-    run_start = newc > 0.5
-    run = torch.cumsum(run_start.to(torch.int64), 0) - 1
-    cut = run_start | (pos % chunk == 0)
-    piece = torch.cumsum(cut.to(torch.int64), 0) - 1
-    first = torch.nonzero(cut).flatten()  # each piece's first position
+    run, piece, first, _, _, _, staged = _chunk_pieces(newc > 0.5, chunk)
     piece_run = run[first]
 
     tabf = tab.to(_F32)
@@ -312,14 +333,6 @@ def gn_system_pieces_ref(tab, dtabs, packed, chunk=K2_CHUNK):
     val = sums[:, p_dim + 3] - invn_end[ends] * torch.sum(sym6_matvec(lam_e, sv) * sv, dim=1)
     r = torch.sqrt(torch.abs(val) + 1e-30)
     jext = torch.cat([(torch.sign(val) / r)[:, None] * sums[:, :p_dim], r[:, None]], dim=1)
-
-    cont = torch.zeros_like(run_start)  # the next position is in the same cell
-    cont[:-1] = ~run_start[1:]
-    head = ~run_start[first] & (first % chunk == 0)
-    last = torch.cat([first[1:], first.new_full((1,), m)]) - 1
-    tail = run_start[first] & cont[last] & ((last + 1) % chunk == 0)
-    staged = torch.zeros(-(-m // chunk), dtype=torch.int64, device=dev)
-    staged.index_add_(0, first // chunk, (head | tail).to(torch.int64))
     return jext.T @ jext, staged
 
 
@@ -399,7 +412,6 @@ def gn_system_ref(tab, dtabs, packed, include_mean_term=True, chunk=8192):
 K3_CHUNK = 128  # positions per K3 chunk (one warp), as K2's
 K3_WARPS = 4  # chunks per block of K3's pieces kernel
 K3_SPAN_WARPS = 8  # chunks per block of K3's spanning-cell kernel
-K3_MEMBER_LANES = False  # pieces kernel variant: lanes on members (True) or on candidates
 
 
 def cand_errors(tabs, packed):
@@ -433,8 +445,7 @@ def cand_errors(tabs, packed):
     P = cuda_lib.ptr
     cuda_lib.LAUNCHES["cand_errors"] += 1
     cuda_lib.check(
-        lib.k3_cand_errors(P(tabc), k, dtab, P(pk), m, *ptrs, P(out), int(K3_MEMBER_LANES),
-                           cuda_lib.stream_ptr(dev)),
+        lib.k3_cand_errors(P(tabc), k, dtab, P(pk), m, *ptrs, P(out), cuda_lib.stream_ptr(dev)),
         "k3_cand_errors",
     )
     return out
@@ -457,12 +468,7 @@ def cand_errors_pieces_ref(tabs, packed, chunk=K3_CHUNK):
     m = packed.shape[1]
     dev = packed.device
     xs, mu0, lam6, w, tidx, newc, invn_end = _unpack(packed)
-    pos = torch.arange(m, device=dev)
-    run_start = newc > 0.5
-    run = torch.cumsum(run_start.to(torch.int64), 0) - 1
-    cut = run_start | (pos % chunk == 0)
-    piece = torch.cumsum(cut.to(torch.int64), 0) - 1
-    first = torch.nonzero(cut).flatten()  # each piece's first position
+    run, piece, first, last, head, ends_run, staged = _chunk_pieces(newc > 0.5, chunk)
     piece_run = run[first]
     n_runs = int(run[-1]) + 1 if m else 0
     vend = invn_end > 0
@@ -477,19 +483,8 @@ def cand_errors_pieces_ref(tabs, packed, chunk=K3_CHUNK):
         sums = cells[run[ends]]
         sv = sums[:, :3]
         err.append(torch.sum(torch.abs(sums[:, 3] - invn * torch.sum(sym6_matvec(lam_e, sv) * sv, dim=1))))
-
-    cont = torch.zeros_like(run_start)  # the next position is in the same cell
-    cont[:-1] = ~run_start[1:]
-    head = ~run_start[first] & (first % chunk == 0)
-    last = torch.cat([first[1:], first.new_full((1,), m)]) - 1
-    tail = run_start[first] & cont[last] & ((last + 1) % chunk == 0)
-    n_chunks = -(-m // chunk)
-    staged = torch.zeros(n_chunks, dtype=torch.int64, device=dev)
-    staged.index_add_(0, first // chunk, (head | tail).to(torch.int64))
     # a valid cell that crosses chunks ends in a head piece
-    span_end = head & ~cont[last] & vend[last]
-    finished = torch.zeros(n_chunks, dtype=torch.int64, device=dev)
-    finished.index_add_(0, last // chunk, span_end.to(torch.int64))
+    finished = torch.zeros_like(staged).index_add_(0, last // chunk, (head & ends_run & vend[last]).to(torch.int64))
     return torch.stack(err), staged, finished
 
 

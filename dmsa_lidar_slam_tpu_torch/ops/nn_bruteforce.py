@@ -29,11 +29,11 @@ def min_sq_dist(ref_pts, ref_valid, queries, query_valid):
     dev = queries.device
     r = ref_pts.to(_F32).contiguous()
     q = queries.to(_F32).contiguous()
-    rv, qv = (v.contiguous() if v.dtype == torch.bool else (v != 0).contiguous() for v in (ref_valid, query_valid))
+    rv, qv = ref_valid.contiguous(), query_valid.contiguous()
     n, nq = r.shape[0], q.shape[0]
     cuda_lib.require(r, "ref_pts", _F32, (n, 3), dev)
     cuda_lib.require(q, "queries", _F32, (nq, 3), dev)
-    # torch.bool is one byte, 0 or 1: the kernel reads bool masks as they are
+    # torch.bool is one byte, 0 or 1: the kernel reads the masks as they are
     cuda_lib.require(rv, "ref_valid", torch.bool, (n,), dev)
     cuda_lib.require(qv, "query_valid", torch.bool, (nq,), dev)
     out = torch.empty(nq, dtype=_F32, device=dev)

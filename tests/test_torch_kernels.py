@@ -288,15 +288,13 @@ def test_k2_large_p_matches_plain_on_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("member_lanes", [False, True])
 @pytest.mark.parametrize("k", [1, 16])
 @pytest.mark.parametrize("case", sorted(K3_CASES))
-def test_k3_candidates_match_plain_on_card(case, k, member_lanes, monkeypatch):
+def test_k3_candidates_match_plain_on_card(case, k):
     """K3 at 1 and 16 candidates (the contract's ends) against its plain
     version, with cells that cross chunks and a masked run over several
     chunks, at K3's tolerance (2e-4 relative)."""
     require_cuda()
-    monkeypatch.setattr(fr, "K3_MEMBER_LANES", member_lanes)
     dev = torch.device("cuda")
     args, _, tabs = _problem(12, n=6000, **K3_CASES[case])
     args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
@@ -314,13 +312,11 @@ def test_k3_candidates_match_plain_on_card(case, k, member_lanes, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("member_lanes", [False, True])
-def test_k3_k4_bitwise_repeatable_on_card(member_lanes, monkeypatch):
+def test_k3_k4_bitwise_repeatable_on_card():
     """Two calls with the same inputs give bit-identical candidate errors
     (fixed-order sums, no float atomics) and nearest distances (atomicMin
     on the f32 bits is exact in any order)."""
     require_cuda()
-    monkeypatch.setattr(fr, "K3_MEMBER_LANES", member_lanes)
     dev = torch.device("cuda")
     args, _, tabs = _problem(13, n=8192, giant_cell=True, masked=0.3)
     args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)

@@ -57,8 +57,6 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--tag", default="")
-    ap.add_argument("--k3-member-lanes", action="store_true",
-                    help="K3's pieces kernel with lanes on members (fused_residuals.K3_MEMBER_LANES)")
     args = ap.parse_args(argv)
     smoke = _load_smoke()
     sys.path.insert(0, os.path.abspath(args.root))
@@ -71,9 +69,6 @@ def main(argv=None):
     from dmsa_lidar_slam_tpu_torch.ops import cuda_lib, voxel
     from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
     from dmsa_lidar_slam_tpu_torch.ops import nn_bruteforce as nb
-
-    if args.k3_member_lanes:
-        fr.K3_MEMBER_LANES = True
 
     dev = torch.device("cuda", 0)
     cuda_lib.library()
@@ -125,7 +120,6 @@ def main(argv=None):
     for (name, shape, fn, _), (ms, ms_steady, host_ms) in zip(rows, timed):
         device_ms, kernels = smoke._profile(fn)
         print(json.dumps(dict(tag=args.tag, root=os.path.abspath(args.root), card=smi, kernel=name, shape=shape,
-                              k3_member_lanes=args.k3_member_lanes,
                               ms=ms, ms_steady=ms_steady, host_ms=host_ms, device_ms=device_ms,
                               device_launches=sum(c for c, _ in kernels.values()), kernels=kernels)), flush=True)
 

@@ -19,7 +19,10 @@ line:
                        device busy ms per scan (the sum of kernel and copy
                        times; the pipeline's own stage annotations left
                        out) and its share of the profiled wall time, and
-                       the top kernels by device time.  Reading the trace
+                       the top kernels by device time, and the launches
+                       and device ms per scan of each of the port's own
+                       kernels (csrc/, whose kernels all live in anonymous
+                       namespaces).  Reading the trace
                        costs minutes at ~10^5 launches per scan, so keep
                        --profile small;
   launches             the port's own kernel counters over the whole run;
@@ -39,6 +42,14 @@ import json
 import os
 import sys
 import time
+
+
+def _port_kernel(name):
+    """The csrc kernel's name in a profiler kernel name, or None."""
+    tag = "(anonymous namespace)::"
+    if tag not in name:
+        return None
+    return name.split(tag, 1)[1].split("(", 1)[0].split("<", 1)[0]
 
 
 def main(argv=None):
@@ -117,13 +128,21 @@ def main(argv=None):
         for e in events:
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 cpu_counts[e.name] = cpu_counts.get(e.name, 0) + 1
-        kernels = {}
+        kernels, launches = {}, {}
         for e in events:
             # GPU-side copies of the CPU stage annotations are not device work
             if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in cpu_counts:
                 kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time
+                launches[e.name] = launches.get(e.name, 0) + 1
         busy_us = sum(kernels.values())
         n_prof = b - a
+        port = {}  # csrc kernel -> [launches, device ms] per scan
+        for k, v in kernels.items():
+            name = _port_kernel(k)
+            if name:
+                c = port.setdefault(name, [0.0, 0.0])
+                c[0] += launches[k] / n_prof
+                c[1] += v / 1000.0 / n_prof
         prof_out = dict(
             profiled_scans=[a, b],
             profiled_wall_ms_per_scan=1000.0 * prof_wall / n_prof,
@@ -136,6 +155,7 @@ def main(argv=None):
             top_kernels_ms_per_scan=[
                 (k[:80], v / 1000.0 / n_prof) for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[: args.top]
             ],
+            port_kernels_per_scan=port,
         )
 
     if args.pipeline == "host":
