@@ -7,7 +7,8 @@ Needs a CUDA card, nvcc and this repository's dmsa_lidar_slam_tpu_torch
 package beside this script; it exits non-zero otherwise.  Phases, each
 printed on its own lines and none of them caught:
 
-  1. the card's name and power limit (nvidia-smi), then the build of the
+  1. the card's name and power limit and its SM clock's maximum
+     (nvidia-smi), then the build of the
      hand-written kernels (csrc/*.cu -> build/kernels/, one nvcc per source,
      all at once) and its wall time;
   2. each kernel K1-K5 against its plain PyTorch version on the card, on the
@@ -170,6 +171,32 @@ def _scene_problem(rng, n, dtab, device, masked=0.05):
     return pts, mask, rings, xs, ti, tab_t
 
 
+def _cand_tables(tab, device):
+    """K3's 15 candidate tables: `tab` with its translations moved by 0.002
+    k m of noise for candidate k (the first unmoved)."""
+    import torch
+
+    tabs = []
+    for k in range(15):
+        tk = tab.clone()
+        tk[:-1, 4:7] += 0.002 * k * torch.randn(tab.shape[0] - 1, 3, device=device,
+                                                 generator=torch.Generator(device=device).manual_seed(10 + k))
+        tabs.append(tk)
+    return torch.stack(tabs)
+
+
+def _clouds(rng, n_ref, n_q, device):
+    """K4's inputs: (ref, ref_valid, queries, query_valid), uniform in a 60 m
+    cube, 10% of each masked."""
+    import torch
+
+    ref = torch.as_tensor(30 * rng.uniform(-1, 1, (n_ref, 3)), dtype=torch.float32, device=device)
+    q = torch.as_tensor(30 * rng.uniform(-1, 1, (n_q, 3)), dtype=torch.float32, device=device)
+    rv = torch.as_tensor(rng.uniform(size=n_ref) > 0.1, device=device)
+    qv = torch.as_tensor(rng.uniform(size=n_q) > 0.1, device=device)
+    return ref, rv, q, qv
+
+
 def kernel_checks(device):
     import numpy as np
     import torch
@@ -202,6 +229,7 @@ def kernel_checks(device):
 
     packs = {}
     lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(device)
+    assert lib.dmsa_chunk_positions() == fr.CHUNK, "K2/K3: the plain statements' chunk is not the library's"
     # K1 at the window (2 x 28,672 over the 502-row dense table) and the
     # 100-keyframe ring (409,600 points over 101 keyframe rows), then, for
     # the record, at the window's real masked share (its own seed, so that
@@ -253,13 +281,7 @@ def kernel_checks(device):
         """K3 at K = 15 candidates against its plain version, twice for the
         bits, and timed."""
         m = packed.shape[1]
-        tabs = []
-        for k in range(15):
-            tk = tab.clone()
-            tk[:-1, 4:7] += 0.002 * k * torch.randn(tab.shape[0] - 1, 3, device=device,
-                                                     generator=torch.Generator(device=device).manual_seed(10 + k))
-            tabs.append(tk)
-        tabs = torch.stack(tabs)
+        tabs = _cand_tables(tab, device)
         e = fr.cand_errors(tabs, packed)
         assert torch.equal(e, fr.cand_errors(tabs, packed)), "K3: not repeatable"
         e_r = fr.cand_errors_ref(tabs, packed)
@@ -309,10 +331,7 @@ def kernel_checks(device):
 
     # K4 at the two static-point queries of a bench scan
     for n_ref, n_q in ((20480, 12288), (8192, 20480)):
-        ref = torch.as_tensor(30 * rng.uniform(-1, 1, (n_ref, 3)), dtype=torch.float32, device=device)
-        q = torch.as_tensor(30 * rng.uniform(-1, 1, (n_q, 3)), dtype=torch.float32, device=device)
-        rv = torch.as_tensor(rng.uniform(size=n_ref) > 0.1, device=device)
-        qv = torch.as_tensor(rng.uniform(size=n_q) > 0.1, device=device)
+        ref, rv, q, qv = _clouds(rng, n_ref, n_q, device)
         d = nb.min_sq_dist(ref, rv, q, qv)
         assert torch.equal(d, nb.min_sq_dist(ref, rv, q, qv)), "K4: not repeatable"
         d_r = nb.min_sq_dist_ref(ref, rv, q, qv)
@@ -321,13 +340,13 @@ def kernel_checks(device):
         assert torch.equal(fin, torch.isfinite(d)), "K4: +inf pattern differs"
         # same f32 difference-of-coordinates formula, another rounding order
         err = float(((d - d_r)[fin].abs() / d_r[fin].clamp(min=1.0)).max())
-        # operations: 10 per pair (3 differences, 3 products, 2 sums, the
-        # validity penalty, the min)
+        # operations: 9 per pair (3 differences, 3 products, 2 sums, the
+        # min)
         record("min_sq_dist", "dmsa_lidar_slam_tpu_torch/csrc/k4_nn.cu",
                "dmsa_lidar_slam_tpu/ops/nn_bruteforce.py:86", err, 1e-5,
                lambda a=(ref, rv, q, qv): nb.min_sq_dist(*a), 20,
                lambda a=(ref, rv, q, qv): nb.min_sq_dist_ref(*a), 3,
-               f"refs={n_ref} queries={n_q}", 13 * n_ref + 17 * n_q, 10 * n_ref * n_q)
+               f"refs={n_ref} queries={n_q}", 13 * n_ref + 17 * n_q, 9 * n_ref * n_q)
 
     # K5 at a keyframe cloud: one bench scan downsampled at the 0.4 m grid
     # and cut to the 4,096-point keyframe cap, rho = 2 x grid
@@ -492,6 +511,13 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    # the SM clock's maximum, to turn a kernel's time into a share of the
+    # card's issue rate
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"SM clock max, now: {clocks}", flush=True)
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 

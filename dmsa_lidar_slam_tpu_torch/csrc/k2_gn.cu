@@ -472,9 +472,25 @@ int num_blocks(int m) { return ((m + kChunk - 1) / kChunk + kWarps - 1) / kWarps
 
 }  // namespace
 
-// Scratch (fused_residuals.gn_system sizes it with K2_CHUNK, K2_WARPS):
-// stage_u [2 nchunks, P], stage_s [2 nchunks, 4], has_start [nchunks],
-// block_cnt [blocks]; small P: partial [blocks, P+1, P+1]; hext [P+1, P+1].
+// Positions per chunk of K2 and K3 (fused_residuals.CHUNK states the same
+// cut in plain torch).
+extern "C" int dmsa_chunk_positions() { return kChunk; }
+
+// The chunk scratch of k2_gn_small and k2_gn_large for m positions and P
+// parameters, in bytes: stage_u [2 nchunks, P] f32, stage_s [2 nchunks, 4]
+// f32, has_start [nchunks] and block_cnt [blocks] int32; and, for
+// k2_gn_small only, partial [blocks, P+1, P+1] f32.
+extern "C" int k2_scratch_bytes(int m, int P, long long* nbytes) {
+  const int nchunks = (m + kChunk - 1) / kChunk, blocks = num_blocks(m);
+  nbytes[0] = (long long)2 * nchunks * P * sizeof(float);
+  nbytes[1] = (long long)2 * nchunks * 4 * sizeof(float);
+  nbytes[2] = (long long)nchunks * sizeof(int);
+  nbytes[3] = (long long)blocks * sizeof(int);
+  nbytes[4] = (long long)blocks * (P + 1) * (P + 1) * sizeof(float);
+  return 0;
+}
+
+// Scratch as k2_scratch_bytes gives it; hext [P+1, P+1].
 extern "C" int k2_gn_small(const float* tab, const float* jt, int P, const float* pk, int m,
                            float* stage_u, float* stage_s, int* has_start, int* block_cnt,
                            float* partial, float* hext, cudaStream_t stream) {

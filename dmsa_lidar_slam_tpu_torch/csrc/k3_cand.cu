@@ -21,7 +21,7 @@
 //      w row), and walks the chunk's pieces.  Within a piece, lane k + 16 h
 //      takes candidate k and every other member (h = 0: even, 1: odd
 //      offsets), so no lane reduces anything but its own sums; a group with
-//      no weight is skipped.  The two halves are added with one shuffle per
+//      no weight is skipped, and lanes past the K candidates idle.  The two halves are added with one shuffle per
 //      component at the piece's end.  A cell inside the chunk is finished
 //      there (|val| per candidate, skipped if the cell is invalid); the head
 //      piece and the tail piece are staged as (s, q1) per candidate.
@@ -54,29 +54,32 @@ __device__ __forceinline__ float cell_val(const float* lam, float invn, float4 s
 
 // Sums (s, q1) over the members lo..hi-1 (chunk offsets) of one cell for
 // candidate k = lane & 15: lane k + 16 h takes offsets lo + h, lo + h + 2,
-// ...; groups of 32 with no weight (bit clear in `live`) are skipped.
-// Lanes 0-15 return the piece's sums for their candidate.
+// ...; groups of 32 with no weight (bit clear in `live`) are skipped, and
+// the lanes of candidates k >= K sum nothing.  Lanes 0-15 return the
+// piece's sums for their candidate.
 __device__ float4 piece_sums(const Member* __restrict__ rows, unsigned live,
-                             const float* __restrict__ tab, int lo, int hi) {
+                             const float* __restrict__ tab, int K, int lo, int hi) {
   const int h = (threadIdx.x >> 4) & 1;
   float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int g = lo >> 5; g <= (hi - 1) >> 5; ++g) {
-    if (!((live >> g) & 1u)) continue;
-    const int e = min(hi, 32 * g + 32);
+  if ((threadIdx.x & 15) < K) {
+    for (int g = lo >> 5; g <= (hi - 1) >> 5; ++g) {
+      if (!((live >> g) & 1u)) continue;
+      const int e = min(hi, 32 * g + 32);
 #pragma unroll 2
-    for (int i = max(lo, 32 * g) + h; i < e; i += 2) {
-      const Member r = rows[i];
-      const float lam[6] = {r.c.x, r.c.y, r.c.z, r.c.w, r.d.x, r.d.y};
-      const Pose ps = load_pose(tab, __float_as_int(r.b.w));
-      float px, py, pz;
-      transform(ps, r.a.x, r.a.y, r.a.z, px, py, pz);
-      const float dx = (px - r.b.x) * r.a.w, dy = (py - r.b.y) * r.a.w, dz = (pz - r.b.z) * r.a.w;
-      float lx, ly, lz;
-      sym6_mv(lam, dx, dy, dz, lx, ly, lz);
-      s.x += dx;
-      s.y += dy;
-      s.z += dz;
-      s.w += lx * dx + ly * dy + lz * dz;
+      for (int i = max(lo, 32 * g) + h; i < e; i += 2) {
+        const Member r = rows[i];
+        const float lam[6] = {r.c.x, r.c.y, r.c.z, r.c.w, r.d.x, r.d.y};
+        const Pose ps = load_pose(tab, __float_as_int(r.b.w));
+        float px, py, pz;
+        transform(ps, r.a.x, r.a.y, r.a.z, px, py, pz);
+        const float dx = (px - r.b.x) * r.a.w, dy = (py - r.b.y) * r.a.w, dz = (pz - r.b.z) * r.a.w;
+        float lx, ly, lz;
+        sym6_mv(lam, dx, dy, dz, lx, ly, lz);
+        s.x += dx;
+        s.y += dy;
+        s.z += dz;
+        s.w += lx * dx + ly * dy + lz * dz;
+      }
     }
   }
   s.x += __shfl_down_sync(FULL_MASK, s.x, 16);
@@ -148,12 +151,12 @@ __global__ void __launch_bounds__(32 * kWarps)
         // and the tail piece (slot 1); a head piece that ends an invalid
         // cell here is never read
         if (tail || valid_end) {
-          const float4 s = piece_sums(rows, live, tab, a - c0, b - c0);
+          const float4 s = piece_sums(rows, live, tab, K, a - c0, b - c0);
           if (lane < kMaxK) stage[(size_t)(2 * c + (head ? 0 : 1)) * kMaxK + lane] = s;
         }
         if (head && !tail && valid_end) head_end = b - 1;
       } else if (valid_end) {  // a cell inside the chunk
-        const float4 s = piece_sums(rows, live, tab, a - c0, b - c0);
+        const float4 s = piece_sums(rows, live, tab, K, a - c0, b - c0);
         const float lam[6] = {er.c.x, er.c.y, er.c.z, er.c.w, er.d.x, er.d.y};
         acc += fabsf(cell_val(lam, er.d.z, s));
       }
@@ -211,28 +214,41 @@ __global__ void cand_final(const float* __restrict__ partial, int nrows, int K,
   if (lane == 0) out[k] = s;
 }
 
+// Blocks of the pieces and the spans kernels for nchunks chunks.
+int pieces_blocks(int nchunks) { return max(1, (nchunks + kWarps - 1) / kWarps); }
+int span_blocks(int nchunks) { return max(1, (nchunks + kSpanWarps - 1) / kSpanWarps); }
+
 }  // namespace
 
-// Scratch (fused_residuals.cand_errors sizes it with K3_CHUNK, K3_WARPS,
-// K3_SPAN_WARPS): stage [2 nchunks, 16, 4] f32, has_start [nchunks],
-// span_end [nchunks] int32, partial [pieces blocks + spans blocks, K] f32.
+// The scratch of k3_cand_errors for m positions and K candidates, in bytes:
+// stage [2 nchunks, 16, 4] f32, has_start [nchunks] and span_end [nchunks]
+// int32, partial [pieces blocks + spans blocks, K] f32.
+extern "C" int k3_scratch_bytes(int m, int K, long long* nbytes) {
+  const int nchunks = (m + kChunk - 1) / kChunk;
+  nbytes[0] = (long long)2 * nchunks * kMaxK * sizeof(float4);
+  nbytes[1] = nbytes[2] = (long long)nchunks * sizeof(int);
+  nbytes[3] = (long long)(pieces_blocks(nchunks) + span_blocks(nchunks)) * K * sizeof(float);
+  return 0;
+}
+
+// Scratch as k3_scratch_bytes gives it.
 extern "C" int k3_cand_errors(const float* tabs, int K, int dtab, const float* packed, int m,
                               float* stage, int* has_start, int* span_end, float* partial,
                               float* out, cudaStream_t stream) {
   if (K > kMaxK || K < 1) return (int)cudaErrorInvalidValue;
   const int nchunks = (m + kChunk - 1) / kChunk;
-  const int blocks = max(1, (nchunks + kWarps - 1) / kWarps);
-  const int span_blocks = max(1, (nchunks + kSpanWarps - 1) / kSpanWarps);
+  const int blocks = pieces_blocks(nchunks);
+  const int spans = span_blocks(nchunks);
   cand_pieces<<<blocks, 32 * kWarps, 0, stream>>>(tabs, K, dtab, packed, m, nchunks,
                                                   reinterpret_cast<float4*>(stage), has_start,
                                                   span_end, partial);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  cand_spans<<<span_blocks, 32 * kSpanWarps, 0, stream>>>(
+  cand_spans<<<spans, 32 * kSpanWarps, 0, stream>>>(
       K, packed, m, nchunks, reinterpret_cast<const float4*>(stage), has_start, span_end,
       partial + (size_t)blocks * K);
   err = (int)cudaGetLastError();
   if (err) return err;
-  cand_final<<<1, 32 * K, 0, stream>>>(partial, blocks + span_blocks, K, out);
+  cand_final<<<1, 32 * K, 0, stream>>>(partial, blocks + spans, K, out);
   return (int)cudaGetLastError();
 }

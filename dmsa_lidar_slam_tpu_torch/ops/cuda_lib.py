@@ -13,6 +13,7 @@ launches its kernel, and nowhere else.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -38,6 +39,10 @@ _SIGNATURES = {
     # tab, xs, tidx, rings, mask, key_s, order, n, min_points, floor, packed, partial, nvalid,
     # num_raw, stream
     "k1_build": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
+    "dmsa_chunk_positions": [],
+    # m, P (K2) or K (K3), the scratch arrays' bytes (out)
+    "k2_scratch_bytes": [_I, _I, _P],
+    "k3_scratch_bytes": [_I, _I, _P],
     # tab, jt, P, packed, m, stage_u, stage_s, has_start, block_cnt, partial, hext, stream
     "k2_gn_small": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     # tab, jt, P, packed, m, stage_u, stage_s, has_start, block_cnt, jrows, rmax, nrows, splits,
@@ -125,6 +130,16 @@ def library():
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=256)
+def scratch_bytes(name, m, x, count):
+    """The bytes of each of the `count` scratch arrays of a kernel call, as
+    the library's own `name` entry point (k2_scratch_bytes,
+    k3_scratch_bytes) lays them out for m positions and x."""
+    out = (ctypes.c_longlong * count)()
+    getattr(library(), name)(m, x, out)
+    return tuple(out)
 
 
 def stream_ptr(device):

@@ -211,8 +211,11 @@ def _unpack(packed):
     return xs, mu0, lam6, w, tidx, newc, invn_end
 
 
-K2_CHUNK = 128  # positions per K2 chunk (one warp); a piece is a cell's members in one chunk
-K2_WARPS = 4  # chunks per K2 block
+# Positions per chunk (one warp) of K2 and K3, as the library's
+# dmsa_chunk_positions(); a piece is a cell's members in one chunk.  Only
+# the plain statements of the cut use it: the wrappers take their scratch
+# sizes from the library.
+CHUNK = 128
 K2_SMALL_P1 = 128  # P + 1 at most for the block-private Hext in shared memory
 
 
@@ -242,17 +245,15 @@ def gn_system(tab, dtabs, packed, max_cells=None):
     cuda_lib.require(jt, "jt", _F32, (tab.shape[0], 7, p_dim), dev)
     cuda_lib.require(pk, "packed", _F32, (PACK_ROWS, m), dev)
     p1 = p_dim + 1
-    nchunks = -(-m // K2_CHUNK)
-    blocks = -(-nchunks // K2_WARPS)
-    # stage_u [2 nchunks, P], stage_s [2 nchunks, 4], has_start [nchunks], block_cnt [blocks]
-    stage = (8 * nchunks * p_dim, 32 * nchunks, 4 * nchunks, 4 * blocks)
+    # stage_u, stage_s, has_start, block_cnt; the small path's partial
+    *stage, small_partial = cuda_lib.scratch_bytes("k2_scratch_bytes", m, p_dim, 5)
     hext = torch.empty((p1, p1), dtype=_F32, device=dev)
     lib = cuda_lib.library()
     stream = cuda_lib.stream_ptr(dev)
     P = cuda_lib.ptr
     cuda_lib.LAUNCHES["gn_system"] += 1
     if p1 <= K2_SMALL_P1:
-        buf, ptrs = _scratch(dev, *stage, 4 * blocks * p1 * p1)
+        buf, ptrs = _scratch(dev, *stage, small_partial)
         cuda_lib.check(lib.k2_gn_small(P(tabc), P(jt), p_dim, P(pk), m, *ptrs, P(hext), stream), "k2_gn_small")
         return hext
     rmax = m if max_cells is None else max(1, min(m, int(max_cells)))
@@ -295,7 +296,7 @@ def _chunk_pieces(run_start, chunk):
     return run, piece, first, last, head, ~cont[last], staged
 
 
-def gn_system_pieces_ref(tab, dtabs, packed, chunk=K2_CHUNK):
+def gn_system_pieces_ref(tab, dtabs, packed, chunk=CHUNK):
     """Plain statement of K2's chunk/piece cut (csrc/k2_gn.cu).
 
     Positions are cut into chunks of `chunk`; a piece is one cell's members
@@ -409,11 +410,6 @@ def gn_system_ref(tab, dtabs, packed, include_mean_term=True, chunk=8192):
 # --------------------------------------------------------------------------
 
 
-K3_CHUNK = 128  # positions per K3 chunk (one warp), as K2's
-K3_WARPS = 4  # chunks per block of K3's pieces kernel
-K3_SPAN_WARPS = 8  # chunks per block of K3's spanning-cell kernel
-
-
 def cand_errors(tabs, packed):
     """Total squared DMSA cell residual per candidate pose table.
 
@@ -421,7 +417,7 @@ def cand_errors(tabs, packed):
     sum over valid cells of |q1 - n mean^T wL mean|.
 
     On the card (csrc/k3_cand.cu; cand_errors_pieces_ref states the cut in
-    plain torch): a pieces kernel over K3_CHUNK-position chunks that
+    plain torch): a pieces kernel over CHUNK-position chunks that
     finishes the cells inside a chunk and stages the pieces of the cells
     that cross chunks, a kernel that finishes those from the staged pieces,
     and a fixed-order sum of the block partials: 3 launches."""
@@ -436,10 +432,8 @@ def cand_errors(tabs, packed):
     cuda_lib.require(pk, "packed", _F32, (PACK_ROWS, m), dev)
     if not 1 <= k <= 16:
         raise ValueError(f"cand_errors takes 1..16 candidates, got {k}")
-    nchunks = -(-m // K3_CHUNK)
-    nrows = max(1, -(-nchunks // K3_WARPS)) + max(1, -(-nchunks // K3_SPAN_WARPS))
-    # stage [2 nchunks, 16, 4] f32, has_start and span_end [nchunks] int32, partial [nrows, K]
-    buf, ptrs = _scratch(dev, 2 * nchunks * 16 * 16, 4 * nchunks, 4 * nchunks, 4 * nrows * k)
+    # stage, has_start, span_end, partial
+    buf, ptrs = _scratch(dev, *cuda_lib.scratch_bytes("k3_scratch_bytes", m, k, 4))
     out = torch.empty(k, dtype=_F32, device=dev)
     lib = cuda_lib.library()
     P = cuda_lib.ptr
@@ -451,7 +445,7 @@ def cand_errors(tabs, packed):
     return out
 
 
-def cand_errors_pieces_ref(tabs, packed, chunk=K3_CHUNK):
+def cand_errors_pieces_ref(tabs, packed, chunk=CHUNK):
     """Plain statement of K3's chunk/piece cut (csrc/k3_cand.cu).
 
     Positions are cut into chunks of `chunk`; a piece is one cell's members

@@ -143,7 +143,7 @@ def test_cand_errors_pieces_ref(case):
     if "masked" in case:
         starts = np.flatnonzero(packed[14] > 0.5)
         lengths = np.append(starts[1:], packed.shape[1]) - starts
-        assert lengths[packed[12, starts] == 0].max() > 4 * tfr.K3_CHUNK
+        assert lengths[packed[12, starts] == 0].max() > 4 * tfr.CHUNK
     want_ref = np.asarray(jfr.cand_errors_ref(jnp.asarray(tabs), jnp.asarray(packed)))
     want_kernel = np.asarray(jfr.cand_errors(jnp.asarray(tabs), jnp.asarray(packed)))
     got = nn(tfr.cand_errors_pieces_ref(tt(tabs), tt(packed))[0])

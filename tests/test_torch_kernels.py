@@ -14,8 +14,10 @@ chunk/piece cut (fused_residuals.gn_system_pieces_ref) is held against the
 plain per-cell normal equations, as is K3's (cand_errors_pieces_ref)
 against the plain candidate errors.  On the card, K1's keys are checked bit
 for bit against voxel.voxel_keys on voxel boundaries, K1-K4 against
-themselves from one call to the next, K3 at 1 and 16 candidates, and K4
-at ragged counts, a large masked share and with no valid reference.
+themselves from one call to the next, K3 at 1 and 16 candidates and each
+candidate's error independent of their number, K4 at ragged counts, a
+large masked share and with no valid reference, and the library's chunk
+and scratch layout against what the plain statements and csrc state.
 
 Tolerances: K1's structural rows (local points, validity, table index, run
 starts, 1/count) are exact; cell means to 2e-4 m and lamw6 to 2% of its
@@ -105,7 +107,7 @@ def test_wrappers_take_plain_versions_on_cpu(giant_cell):
     assert all(v == 0 for v in cuda_lib.LAUNCHES.values())
 
 
-@pytest.mark.parametrize("chunk", [32, fr.K2_CHUNK])
+@pytest.mark.parametrize("chunk", [32, fr.CHUNK])
 @pytest.mark.parametrize("giant_cell", [False, True])
 def test_k2_piece_cut_gives_cell_sums(giant_cell, chunk):
     """K2's chunk/piece cut, stated in plain torch: summing every cell's
@@ -130,7 +132,7 @@ def test_k2_piece_cut_gives_cell_sums(giant_cell, chunk):
 K3_CASES = {"cells": {}, "giant_cell": {"giant_cell": True}, "long_masked_run": {"masked": 0.4}}
 
 
-@pytest.mark.parametrize("chunk", [32, fr.K3_CHUNK])
+@pytest.mark.parametrize("chunk", [32, fr.CHUNK])
 @pytest.mark.parametrize("case", sorted(K3_CASES))
 def test_k3_piece_cut_gives_cell_errors(case, chunk):
     """K3's chunk/piece cut, stated in plain torch: summing every cell's
@@ -309,6 +311,42 @@ def test_k3_candidates_match_plain_on_card(case, k):
     np.testing.assert_allclose(e, nn(fr.cand_errors_ref(tk, pk)), rtol=2e-4)
     with pytest.raises(ValueError):
         fr.cand_errors(torch.cat([tk] * (17 // k + 1))[:17], pk)
+
+
+@pytest.mark.gpu
+def test_k3_candidate_errors_independent_of_k_on_card():
+    """Each candidate's error comes out bit for bit the same whatever the
+    number of candidates in the call (the lanes past K sum nothing, and each
+    candidate's sums run in the same order)."""
+    require_cuda()
+    dev = torch.device("cuda")
+    args, _, tabs = _problem(16, n=6000, giant_cell=True, masked=0.3)
+    args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
+    pk = fr.build_packed(*args)[0]
+    t16 = torch.cat([tabs, tabs[:1]]).to(dev)
+    t16[-1, :-1, 4:7] += 0.01
+    e16 = fr.cand_errors(t16, pk)
+    for k in (1, 5, 15):
+        assert torch.equal(fr.cand_errors(t16[:k], pk), e16[:k]), k
+
+
+@pytest.mark.gpu
+def test_chunk_scratch_layout_from_library():
+    """The plain statements' chunk is the library's, and the scratch sizes
+    the wrappers take from the library are the layouts that k2_gn.cu and
+    k3_cand.cu state."""
+    require_cuda()
+    assert cuda_lib.library().dmsa_chunk_positions() == fr.CHUNK
+    for m in (0, 1, 128, 129, 57344):
+        nch = -(-m // fr.CHUNK)
+        blocks = -(-nch // 4)
+        for p_dim in (6, 30):
+            assert cuda_lib.scratch_bytes("k2_scratch_bytes", m, p_dim, 5) == (
+                8 * nch * p_dim, 32 * nch, 4 * nch, 4 * blocks, 4 * blocks * (p_dim + 1) ** 2)
+        for k in (1, 15):
+            rows = max(1, blocks) + max(1, -(-nch // 8))
+            assert cuda_lib.scratch_bytes("k3_scratch_bytes", m, k, 4) == (
+                512 * nch, 4 * nch, 4 * nch, 4 * rows * k)
 
 
 @pytest.mark.gpu

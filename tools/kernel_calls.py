@@ -97,21 +97,13 @@ def main(argv=None):
         rows.append(("gn_system", f"P={p_dim} M={packed.shape[1]}",
                      lambda t=tab, d=dtabs, p=packed, mc=mc: fr.gn_system(t, d, p, max_cells=mc), 5))
     for (n, masked), (packed, tab) in packs.items():
-        # chip_smoke's 15 candidate tables
-        tabs = torch.stack([tab] + [tab.clone() for _ in range(14)])
-        for k in range(1, 15):
-            tabs[k, :-1, 4:7] += 0.002 * k * torch.randn(tab.shape[0] - 1, 3, device=dev,
-                                                         generator=torch.Generator(device=dev).manual_seed(10 + k))
+        tabs = smoke._cand_tables(tab, dev)
         label = "" if masked == 0.05 else f" masked={masked}"
         rows.append(("cand_errors", f"K=15 Dtab={tab.shape[0]} M={packed.shape[1]}{label}",
                      lambda t=tabs, p=packed: fr.cand_errors(t, p), 10))
     for n_ref, n_q in ((20480, 12288), (8192, 20480)):
-        # chip_smoke's clouds for K4 (another stream of the same generator)
-        ref = torch.as_tensor(30 * rng.uniform(-1, 1, (n_ref, 3)), dtype=torch.float32, device=dev)
-        q = torch.as_tensor(30 * rng.uniform(-1, 1, (n_q, 3)), dtype=torch.float32, device=dev)
-        rv = torch.as_tensor(rng.uniform(size=n_ref) > 0.1, device=dev)
-        qv = torch.as_tensor(rng.uniform(size=n_q) > 0.1, device=dev)
-        rows.append(("min_sq_dist", f"refs={n_ref} queries={n_q}", lambda a=(ref, rv, q, qv): nb.min_sq_dist(*a), 20))
+        a = smoke._clouds(rng, n_ref, n_q, dev)
+        rows.append(("min_sq_dist", f"refs={n_ref} queries={n_q}", lambda a=a: nb.min_sq_dist(*a), 20))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     steady = smoke.STEADY_REPS
