@@ -19,9 +19,11 @@ printed on its own lines and none of them caught:
      counted from this run's inputs); the steady-state time after 20
      warm-up calls (ms_steady) and the host's time to enqueue one call
      (host_ms); K1's keys bit for bit against voxel.voxel_keys, with the
-     grid as a host number and as a card scalar, and K1-K4 bit for bit
+     grid as a host number and as a card scalar, and K1-K5 bit for bit
      against a second call; K1 and K3 once more at the window's real
-     masked share (WINDOW_MASKED_SHARE);
+     masked share (WINDOW_MASKED_SHARE); K5 with its radius as a host
+     number (the host pipeline's form) and as an f32 card scalar (the
+     fused pipeline's), bit for bit the same, and timed both ways;
   3. the fused pipeline: FusedDmsaSlam on bench_sequence(3) with
      bench_config(), 50 scans of 20,000 points.  Launch counters are zeroed
      just before and read just after; every kernel must have run,
@@ -197,6 +199,25 @@ def _clouds(rng, n_ref, n_q, device):
     return ref, rv, q, qv
 
 
+def _keyframe_cloud(device):
+    """K5's input: one bench scan downsampled at the 0.4 m grid and cut to
+    the 4,096-point keyframe cap.  Returns (points [4096, 3], mask, grid);
+    the main path's radius is 2 x grid."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.io.synthetic import bench_sequence
+    from dmsa_lidar_slam_tpu_torch.ops import voxel
+
+    grid, n_kf = 0.4, 4096
+    scan = torch.as_tensor(bench_sequence(3).scan(20, PTS_PER_SCAN)[0], dtype=torch.float32, device=device)
+    prio = torch.randint(-(2**31), 2**31, (scan.shape[0],), dtype=torch.int32, device=device,
+                         generator=torch.Generator(device=device).manual_seed(2))
+    keep = voxel.random_downsample_mask(scan, torch.ones(scan.shape[0], dtype=torch.bool, device=device), grid, prio)
+    idx, kmask = voxel.compact(keep, n_kf)
+    kpts = torch.where(kmask[:, None], scan[idx], torch.zeros_like(scan[idx])).contiguous()
+    return kpts, kmask, grid
+
+
 def kernel_checks(device):
     import numpy as np
     import torch
@@ -348,25 +369,23 @@ def kernel_checks(device):
                lambda a=(ref, rv, q, qv): nb.min_sq_dist_ref(*a), 3,
                f"refs={n_ref} queries={n_q}", 13 * n_ref + 17 * n_q, 9 * n_ref * n_q)
 
-    # K5 at a keyframe cloud: one bench scan downsampled at the 0.4 m grid
-    # and cut to the 4,096-point keyframe cap, rho = 2 x grid
-    from dmsa_lidar_slam_tpu_torch.io.synthetic import bench_sequence
-    from dmsa_lidar_slam_tpu_torch.ops import voxel
-
-    grid, n_kf = 0.4, 4096
-    scan = torch.as_tensor(bench_sequence(3).scan(20, PTS_PER_SCAN)[0], dtype=torch.float32, device=device)
-    prio = torch.randint(-(2**31), 2**31, (scan.shape[0],), dtype=torch.int32, device=device,
-                         generator=torch.Generator(device=device).manual_seed(2))
-    keep = voxel.random_downsample_mask(scan, torch.ones(scan.shape[0], dtype=torch.bool, device=device), grid, prio)
-    idx, kmask = voxel.compact(keep, n_kf)
-    kpts = torch.where(kmask[:, None], scan[idx], torch.zeros_like(scan[idx])).contiguous()
-    out = nb.radius_neighbor_moments(kpts, kmask, 2.0 * grid)
-    out_r = nb.radius_neighbor_moments_ref(kpts, kmask, 2.0 * grid)
+    # K5 at a keyframe cloud, rho = 2 x grid, with the radius as a host
+    # number (the host pipeline's form) and as an f32 card scalar (the fused
+    # pipeline's); 2 x f32(0.4) is f32(0.8), so both give the same bits
+    kpts, kmask, grid = _keyframe_cloud(device)
+    n_kf, rho = kpts.shape[0], 2.0 * grid
+    rho_card = 2.0 * torch.tensor(grid, dtype=torch.float32, device=device)
+    out = nb.radius_neighbor_moments(kpts, kmask, rho)
+    again = nb.radius_neighbor_moments(kpts, kmask, rho)
+    assert all(torch.equal(a, b) for a, b in zip(out, again)), "K5: not repeatable"
+    on_card = nb.radius_neighbor_moments(kpts, kmask, rho_card)
+    assert all(torch.equal(a, b) for a, b in zip(out, on_card)), "K5: the card-scalar radius gives other bits"
+    out_r = nb.radius_neighbor_moments_ref(kpts, kmask, rho)
     torch.cuda.synchronize()
     cnt, mean, cov = out
     cnt_r, mean_r, cov_r = out_r
     agree = float((cnt == cnt_r).to(torch.float32).mean())
-    print(f"  radius_neighbor_moments N={n_kf} valid={int(kmask.sum())} rho={2 * grid} "
+    print(f"  radius_neighbor_moments N={n_kf} valid={int(kmask.sum())} rho={rho} "
           f"count agreement {agree:.6f} (tol: 1.0, the same op-by-op d2), mean count {float(cnt_r.mean()):.2f}",
           flush=True)
     assert agree == 1.0, "K5: neighbour counts differ"
@@ -380,12 +399,13 @@ def kernel_checks(device):
     # operations: 9 per pair of valid points for the distance test, ~20 per
     # neighbour counted (this run's counts) for the ten sums
     nv = int(kmask.sum())
-    record("radius_neighbor_moments", "dmsa_lidar_slam_tpu_torch/csrc/k5_moments.cu",
-           "dmsa_lidar_slam_tpu/ops/nn_bruteforce.py:216", cov_err, 1e-5 * cov_scale,
-           lambda: nb.radius_neighbor_moments(kpts, kmask, 2.0 * grid), 20,
-           lambda: nb.radius_neighbor_moments_ref(kpts, kmask, 2.0 * grid), 3,
-           f"N={n_kf} rho={2 * grid}", 65 * n_kf, 9 * nv * nv + 20 * int(cnt_r.sum()))
-    results[-1].update(count_agreement=agree, mean_max_abs_err=mean_err)
+    for r, label in ((rho, ""), (rho_card, " card-scalar radius")):
+        record("radius_neighbor_moments", "dmsa_lidar_slam_tpu_torch/csrc/k5_moments.cu",
+               "dmsa_lidar_slam_tpu/ops/nn_bruteforce.py:216", cov_err, 1e-5 * cov_scale,
+               lambda r=r: nb.radius_neighbor_moments(kpts, kmask, r), 20,
+               lambda r=r: nb.radius_neighbor_moments_ref(kpts, kmask, r), 3,
+               f"N={n_kf} rho={rho}{label}", 65 * n_kf, 9 * nv * nv + 20 * int(cnt_r.sum()))
+        results[-1].update(count_agreement=agree, mean_max_abs_err=mean_err)
     return results, calls
 
 

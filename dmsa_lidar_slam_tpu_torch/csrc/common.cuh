@@ -62,6 +62,20 @@ __device__ __forceinline__ void sym6_mv(const float* l, float x, float y, float 
 
 __device__ __forceinline__ float sign_of(float v) { return (float)((v > 0.f) - (v < 0.f)); }
 
+// The current device's SM count, read once per process (K4 and K5 size
+// their grids by it).
+inline cudaError_t num_sms(int* sms) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  *sms = cached;
+  return cudaSuccess;
+}
+
 // Butterfly sum: every lane ends with the total, in a fixed order.
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -88,20 +88,16 @@ extern "C" int k4_min_sq_dist(const float* ref, const unsigned char* rvalid, int
                               const unsigned char* qvalid, int nq, float* out,
                               cudaStream_t stream) {
   if (nq <= 0) return (int)cudaGetLastError();
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-  }
+  int sms = 0;
+  cudaError_t e = num_sms(&sms);
+  if (e != cudaSuccess) return (int)e;
   const int qtiles = (nq + kQTile - 1) / kQTile;
   const int rtiles = max(1, (n + kRefTile - 1) / kRefTile);
   // reference tiles per split: enough splits for kBlocksPerSM blocks per SM
   const int want = max(1, (kBlocksPerSM * sms + qtiles - 1) / qtiles);
   const int per = (rtiles + min(want, rtiles) - 1) / min(want, rtiles);
   const int splits = (rtiles + per - 1) / per;
-  cudaError_t e = cudaMemsetAsync(out, 0xff, (size_t)nq * sizeof(float), stream);
+  e = cudaMemsetAsync(out, 0xff, (size_t)nq * sizeof(float), stream);
   if (e != cudaSuccess) return (int)e;
   nn_min<<<dim3(qtiles, splits), kThreads, 0, stream>>>(ref, rvalid, n, per * kRefTile, q, qvalid,
                                                          nq, reinterpret_cast<unsigned*>(out));

@@ -43,6 +43,8 @@ _SIGNATURES = {
     # m, P (K2) or K (K3), the scratch arrays' bytes (out)
     "k2_scratch_bytes": [_I, _I, _P],
     "k3_scratch_bytes": [_I, _I, _P],
+    # n, the scratch array's bytes (out)
+    "k5_scratch_bytes": [_I, _P],
     # tab, jt, P, packed, m, stage_u, stage_s, has_start, block_cnt, partial, hext, stream
     "k2_gn_small": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     # tab, jt, P, packed, m, stage_u, stage_s, has_start, block_cnt, jrows, rmax, nrows, splits,
@@ -52,8 +54,8 @@ _SIGNATURES = {
     "k3_cand_errors": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
     # ref, rvalid, n, q, qvalid, nq, out, stream
     "k4_min_sq_dist": [_P, _P, _I, _P, _P, _I, _P, _P],
-    # pts, valid, n, rho2, cnt, mean, cov, stream
-    "k5_radius_moments": [_P, _P, _I, _P, _P, _P, _P, _P],
+    # pts, valid, n, rho_host, rho, part, cnt, mean, cov, stream
+    "k5_radius_moments": [_P, _P, _I, _F, _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -133,12 +135,13 @@ def library():
 
 
 @functools.lru_cache(maxsize=256)
-def scratch_bytes(name, m, x, count):
+def scratch_bytes(name, count, *dims):
     """The bytes of each of the `count` scratch arrays of a kernel call, as
-    the library's own `name` entry point (k2_scratch_bytes,
-    k3_scratch_bytes) lays them out for m positions and x."""
+    the library's own `name` entry point lays them out for the call's sizes
+    `dims`: k2_scratch_bytes (m positions, P), k3_scratch_bytes (m, K),
+    k5_scratch_bytes (n points, on the current device)."""
     out = (ctypes.c_longlong * count)()
-    getattr(library(), name)(m, x, out)
+    check(getattr(library(), name)(*dims, out), name)
     return tuple(out)
 
 

@@ -246,7 +246,7 @@ def gn_system(tab, dtabs, packed, max_cells=None):
     cuda_lib.require(pk, "packed", _F32, (PACK_ROWS, m), dev)
     p1 = p_dim + 1
     # stage_u, stage_s, has_start, block_cnt; the small path's partial
-    *stage, small_partial = cuda_lib.scratch_bytes("k2_scratch_bytes", m, p_dim, 5)
+    *stage, small_partial = cuda_lib.scratch_bytes("k2_scratch_bytes", 5, m, p_dim)
     hext = torch.empty((p1, p1), dtype=_F32, device=dev)
     lib = cuda_lib.library()
     stream = cuda_lib.stream_ptr(dev)
@@ -433,7 +433,7 @@ def cand_errors(tabs, packed):
     if not 1 <= k <= 16:
         raise ValueError(f"cand_errors takes 1..16 candidates, got {k}")
     # stage, has_start, span_end, partial
-    buf, ptrs = _scratch(dev, *cuda_lib.scratch_bytes("k3_scratch_bytes", m, k, 4))
+    buf, ptrs = _scratch(dev, *cuda_lib.scratch_bytes("k3_scratch_bytes", 4, m, k))
     out = torch.empty(k, dtype=_F32, device=dev)
     lib = cuda_lib.library()
     P = cuda_lib.ptr

@@ -9,9 +9,20 @@ get +inf, as do all queries when no reference is valid.
 
 K5 (radius_neighbor_moments): per valid point, the count, mean and
 covariance of the valid points within a radius, self included, with the
-moments taken about the query point (csrc/k5_moments.cu).
+moments taken about the query point (csrc/k5_moments.cu: a kernel over
+query tiles x reference splits whose sums run only where a warp has a
+neighbour, and a finish kernel that sums the splits in a fixed order).
+
+A radius is a host number or a tensor (for K5 on the card, a one-element
+f32 tensor on the points' device).  Neither wrapper turns a host number
+into a card tensor: that is a blocking copy, which syncs the stream.
+rho^2 is the f32 radius squared in f32 either way, as the plain versions
+compute it.
 """
 
+import numbers
+
+import numpy as np
 import torch
 
 from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
@@ -63,20 +74,49 @@ def min_sq_dist_ref(ref_pts, ref_valid, queries, query_valid, pair_budget=1 << 2
 
 
 def has_neighbor_within(ref_pts, ref_valid, queries, query_valid, radius):
-    """Boolean [Q]: a valid reference lies within `radius` of the query."""
+    """Boolean [Q]: a valid reference lies within `radius` of the query.
+
+    radius: a host number (compared as the f32 radius squared in f32, a
+    scalar argument of the comparison) or a tensor (squared where it lies)."""
     d2 = min_sq_dist(ref_pts, ref_valid, queries, query_valid)
-    return d2 <= torch.as_tensor(radius, dtype=_F32, device=d2.device) ** 2
+    if isinstance(radius, torch.Tensor):
+        return d2 <= radius.to(_F32) ** 2
+    return d2 <= _host_rho2(radius)
+
+
+def _host_rho2(radius):
+    """The f32 square of the f32 radius, as a Python float (exact: the
+    product of two f32 values is exact in f64 and rounds once to f32)."""
+    r = float(np.float32(radius))
+    return float(np.float32(r * r))
 
 
 def _rho2(radius, device):
-    """rho^2 [1] f32 on the device, from a float or a tensor radius."""
+    """rho^2 [1] f32 on the device, from a float or a tensor radius (the
+    plain version's form)."""
     return (torch.as_tensor(radius, device=device).to(_F32) ** 2).reshape(1).contiguous()
+
+
+def _radius_operand(radius, device):
+    """The radius as k5_radius_moments takes it: (rho_host, rho pointer or
+    None).  A host number goes in as an f32 argument, a one-element f32
+    tensor on the points' card as its pointer; the kernel squares either in
+    f32.  Any other radius is refused."""
+    if isinstance(radius, torch.Tensor):
+        if radius.numel() != 1 or radius.dtype != _F32 or radius.device != device:
+            raise ValueError(f"radius: one f32 value on {device} expected, got {radius.dtype} "
+                             f"shape {tuple(radius.shape)} on {radius.device}")
+        return 0.0, cuda_lib.ptr(radius)
+    if isinstance(radius, numbers.Real):
+        return float(radius), None
+    raise ValueError(f"radius: a number or an f32 tensor expected, got {type(radius).__name__}")
 
 
 def radius_neighbor_moments(pts, valid, radius):
     """Per-point neighbour moments within `radius`, self included.
 
-    pts [N, 3], valid [N] bool, radius a float or a 0-d tensor.  Returns
+    pts [N, 3], valid [N] bool, radius a host number or (on the card) a
+    one-element f32 tensor on the points' device.  Returns
     (count [N], mean [N, 3], cov [N, 3, 3]) f32 in the points' frame:
     over the valid r with |r - q|^2 <= radius^2, cov = (S - s s^T / count) /
     max(count - 1, 1) with s, S the first and second moments of r - q, zero
@@ -86,18 +126,26 @@ def radius_neighbor_moments(pts, valid, radius):
         return radius_neighbor_moments_ref(pts, valid, radius)
     dev = pts.device
     p = pts.to(_F32).contiguous()
-    v = valid.to(torch.uint8).contiguous()
+    v = valid.contiguous()
     n = p.shape[0]
     cuda_lib.require(p, "pts", _F32, (n, 3), dev)
-    cuda_lib.require(v, "valid", torch.uint8, (n,), dev)
-    rho2 = _rho2(radius, dev)
+    # torch.bool is one byte, 0 or 1: the kernel reads the mask as it is
+    cuda_lib.require(v, "valid", torch.bool, (n,), dev)
+    rho_host, rho_ptr = _radius_operand(radius, dev)
+    # three allocations: slicing one buffer into views costs the host more
     cnt = torch.empty(n, dtype=_F32, device=dev)
     mean = torch.empty((n, 3), dtype=_F32, device=dev)
     cov = torch.empty((n, 3, 3), dtype=_F32, device=dev)
+    if n == 0:
+        return cnt, mean, cov
+    # the per-split partial sums, laid out by the library
+    (nbytes,) = cuda_lib.scratch_bytes("k5_scratch_bytes", 1, n)
+    part = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     P = cuda_lib.ptr
     cuda_lib.LAUNCHES["radius_neighbor_moments"] += 1
     cuda_lib.check(
-        cuda_lib.library().k5_radius_moments(P(p), P(v), n, P(rho2), P(cnt), P(mean), P(cov), cuda_lib.stream_ptr(dev)),
+        cuda_lib.library().k5_radius_moments(P(p), P(v), n, rho_host, rho_ptr, P(part), P(cnt), P(mean), P(cov),
+                                             cuda_lib.stream_ptr(dev)),
         "k5_radius_moments",
     )
     return cnt, mean, cov

@@ -13,11 +13,14 @@ version's result and launches nothing, and the plain statement of K2's
 chunk/piece cut (fused_residuals.gn_system_pieces_ref) is held against the
 plain per-cell normal equations, as is K3's (cand_errors_pieces_ref)
 against the plain candidate errors.  On the card, K1's keys are checked bit
-for bit against voxel.voxel_keys on voxel boundaries, K1-K4 against
+for bit against voxel.voxel_keys on voxel boundaries, K1-K5 against
 themselves from one call to the next, K3 at 1 and 16 candidates and each
 candidate's error independent of their number, K4 at ragged counts, a
-large masked share and with no valid reference, and the library's chunk
-and scratch layout against what the plain statements and csrc state.
+large masked share and with no valid reference, K5 at ragged counts, one
+and no points, all masked, pairs exactly at the radius and with the radius
+as a host number and as a card scalar, the library's chunk and scratch
+layouts against what the plain statements and csrc state, and K4 and K5
+with a host radius under torch's sync debug mode.
 
 Tolerances: K1's structural rows (local points, validity, table index, run
 starts, 1/count) are exact; cell means to 2e-4 m and lamw6 to 2% of its
@@ -210,6 +213,128 @@ def test_k5_matches_plain_on_card():
     np.testing.assert_allclose(cov, cov_r, atol=1e-5 * np.abs(cov_r).max())
 
 
+K5_CASES = {  # (points, invalid share): counts off the 256-query tile and the 32-reference split grain
+    "ragged": (3001, 0.2),
+    "one_point": (1, 0.0),
+    "no_points": (0, 0.0),
+    "all_invalid": (700, 1.0),
+    "keyframe_cap": (4096, 0.1),
+    "over_one_split_tile": (20011, 0.3),
+}
+
+
+def _k5_cloud(seed, n, invalid, extent=2.0):
+    """Points in a cube, a share `invalid` of them masked with NaN
+    coordinates (a masked slot must never enter a sum)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-extent, extent, (n, 3)).astype(np.float32)
+    valid = rng.uniform(size=n) >= invalid
+    pts[~valid] = np.nan
+    return torch.as_tensor(pts), torch.as_tensor(valid)
+
+
+def _k5_vs_plain(out, pts, valid, radius):
+    """K5's result against its plain version: counts exactly, means to 2e-6
+    m, covariances to 1e-5 of their scale; all finite."""
+    cnt, mean, cov = (nn(a) for a in out)
+    cnt_r, mean_r, cov_r = (nn(a) for a in nb.radius_neighbor_moments_ref(pts, valid, radius))
+    assert cnt.shape == cnt_r.shape and mean.shape == mean_r.shape and cov.shape == cov_r.shape
+    np.testing.assert_array_equal(cnt, cnt_r)
+    np.testing.assert_allclose(mean, mean_r, atol=2e-6)
+    np.testing.assert_allclose(cov, cov_r, atol=1e-5 * max(float(np.abs(cov_r).max(initial=0.0)), 1e-30))
+    assert all(np.all(np.isfinite(a)) for a in (cnt, mean, cov))
+    return cnt_r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_k5_edges_on_card(case):
+    """K5 against its plain version at counts off every tile and split size,
+    at one and no points, with every point masked, and over more than one
+    shared-memory tile per split; NaN in the masked slots.  One launch per
+    call (none for no points), a second call bit for bit the same, and the
+    radius as a host float and as an f32 card scalar giving the same bits;
+    a radius of another type or device is refused."""
+    require_cuda()
+    dev = torch.device("cuda")
+    n, invalid = K5_CASES[case]
+    pts, valid = (a.to(dev) for a in _k5_cloud(17, n, invalid))
+    before = cuda_lib.LAUNCHES["radius_neighbor_moments"]
+    out = nb.radius_neighbor_moments(pts, valid, 0.5)
+    assert cuda_lib.LAUNCHES["radius_neighbor_moments"] == before + (n > 0)
+    for again in (nb.radius_neighbor_moments(pts, valid, 0.5),
+                  nb.radius_neighbor_moments(pts, valid, torch.tensor(0.5, dtype=torch.float32, device=dev))):
+        assert all(torch.equal(a, b) for a, b in zip(out, again))
+    cnt_r = _k5_vs_plain(out, pts, valid, 0.5)
+    if invalid == 1.0:
+        assert not np.any(cnt_r)
+    elif n > 1000:
+        assert cnt_r.max() >= 10
+    for bad in (torch.tensor(0.5, dtype=torch.float64, device=dev), torch.tensor(0.5), "0.5"):
+        with pytest.raises(ValueError):
+            nb.radius_neighbor_moments(pts, valid, bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radius", [0.5, 0.3])
+def test_k5_pairs_at_the_radius_on_card(radius):
+    """Pairs exactly at d2 == rho^2 (f32) count, as in the plain version:
+    a lattice 0.5 apart where every axial pair lies at the radius 0.5, and
+    chains of three points f32(radius) apart along x (exact for any radius:
+    the differences and the square are exact)."""
+    require_cuda()
+    dev = torch.device("cuda")
+    s = np.float32(radius)
+    k = np.arange(6, dtype=np.float32) * np.float32(0.5)
+    lattice = np.stack(np.meshgrid(k + 10.0, k - 3.0, k + 2.0, indexing="ij"), axis=-1).reshape(-1, 3)
+    chains = np.zeros((3 * 50, 3), np.float32)
+    chains[:, 0] = np.tile(np.array([0.0, s, 2 * s], np.float32), 50)
+    chains[:, 1] = np.repeat(3.0 * np.arange(50, dtype=np.float32), 3)
+    pts = np.concatenate([lattice if radius == 0.5 else np.zeros((0, 3), np.float32), chains]).astype(np.float32)
+    pts_t = torch.as_tensor(pts, device=dev)
+    valid = torch.ones(len(pts), dtype=torch.bool, device=dev)
+    for r in (radius, torch.tensor(radius, dtype=torch.float32, device=dev)):
+        cnt_r = _k5_vs_plain(nb.radius_neighbor_moments(pts_t, valid, r), pts_t, valid, radius)
+        np.testing.assert_array_equal(cnt_r[-150:], np.tile([2.0, 3.0, 2.0], 50))
+        if radius == 0.5:
+            assert cnt_r[:216].max() == 7 and cnt_r[:216].min() == 4
+
+
+@pytest.mark.gpu
+def test_k5_scratch_layout_from_library():
+    """The K5 scratch the wrapper takes from the library is the layout
+    k5_moments.cu states: [splits, 10, n] f32, with the split count from
+    256-query tiles, 32-reference grains and 8 blocks per SM."""
+    require_cuda()
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    for n in (1, 31, 32, 33, 257, 3001, 4096, 100000):
+        qtiles, grains = -(-n // 256), -(-n // 32)
+        want = min(grains, max(1, -(-(8 * sms) // qtiles)))
+        per = -(-grains // want)
+        splits = -(-grains // per)
+        assert cuda_lib.scratch_bytes("k5_scratch_bytes", 1, n) == (4 * 10 * splits * n,), n
+
+
+@pytest.mark.gpu
+def test_k4_k5_host_radius_make_no_sync():
+    """K5 and has_neighbor_within with a Python-float radius copy nothing to
+    the card and never sync the stream (torch's sync debug mode raises on
+    either)."""
+    require_cuda()
+    dev = torch.device("cuda")
+    pts, valid = (a.to(dev) for a in _k5_cloud(18, 4096, 0.1))
+    ref, rv, q, qv = (a.to(dev) for a in _clouds(19, 5000, 3000))
+    warm = (nb.radius_neighbor_moments(pts, valid, 0.8), nb.has_neighbor_within(ref, rv, q, qv, 0.8))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = nb.radius_neighbor_moments(pts, valid, 0.8)
+        near = nb.has_neighbor_within(ref, rv, q, qv, 0.8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.equal(a, b) for a, b in zip(out, warm[0])) and torch.equal(near, warm[1])
+
+
 def _boundary_points(grid, n_cells=40):
     """f32 coordinates exactly on voxel boundaries k * grid (as f32) and one
     ulp either side, in all three axes, with and without a mask."""
@@ -341,11 +466,11 @@ def test_chunk_scratch_layout_from_library():
         nch = -(-m // fr.CHUNK)
         blocks = -(-nch // 4)
         for p_dim in (6, 30):
-            assert cuda_lib.scratch_bytes("k2_scratch_bytes", m, p_dim, 5) == (
+            assert cuda_lib.scratch_bytes("k2_scratch_bytes", 5, m, p_dim) == (
                 8 * nch * p_dim, 32 * nch, 4 * nch, 4 * blocks, 4 * blocks * (p_dim + 1) ** 2)
         for k in (1, 15):
             rows = max(1, blocks) + max(1, -(-nch // 8))
-            assert cuda_lib.scratch_bytes("k3_scratch_bytes", m, k, 4) == (
+            assert cuda_lib.scratch_bytes("k3_scratch_bytes", 4, m, k) == (
                 512 * nch, 4 * nch, 4 * nch, 4 * rows * k)
 
 

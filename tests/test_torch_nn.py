@@ -12,6 +12,7 @@ radius^2.
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -49,6 +50,43 @@ def test_min_sq_dist_and_has_neighbor(seed, n_ref, n_q):
     hg = nn(tnb.has_neighbor_within(tt(ref), tt(rv), tt(q), tt(qv), radius))
     edge = np.abs(want - radius**2) <= D2_ATOL + D2_RTOL * radius**2
     assert np.all((hw == hg) | edge)
+
+
+def _at_the_radius(radius, n=40):
+    """Queries 3 m apart along y, each with one reference at exactly
+    (f32(radius), 0, 0) from it (d2 == rho^2 in f32: the difference and the
+    square are exact) and, for the second half, that reference one ulp
+    farther out (d2 > rho^2)."""
+    s = np.float32(radius)
+    q = np.zeros((n, 3), np.float32)
+    q[:, 1] = 3.0 * np.arange(n, dtype=np.float32)
+    ref = q.copy()
+    ref[:, 0] = s
+    ref[n // 2 :, 0] = np.nextafter(s, np.float32(np.inf))
+    inside = np.arange(n) < n // 2
+    return ref, q, inside
+
+
+@pytest.mark.parametrize("radius", [0.5, 0.3, 0.8])
+def test_has_neighbor_within_float_and_tensor_radius(radius):
+    """has_neighbor_within with the radius as a host float (compared as the
+    f32 radius squared in f32) and as an f32 tensor: the same booleans, with
+    references exactly at d2 == rho^2 inside and one ulp farther outside,
+    and with the reference away from the boundary (random clouds)."""
+    ref, q, inside = _at_the_radius(radius)
+    rv, qv = np.ones(len(ref), bool), np.ones(len(q), bool)
+    as_float = tnb.has_neighbor_within(tt(ref), tt(rv), tt(q), tt(qv), radius)
+    as_tensor = tnb.has_neighbor_within(tt(ref), tt(rv), tt(q), tt(qv), torch.tensor(radius, dtype=torch.float32))
+    assert torch.equal(as_float, as_tensor)
+    np.testing.assert_array_equal(nn(as_float), inside)
+    ref, rv, q, qv = _clouds(7, 800, 600, extent=3.0)
+    hf = nn(tnb.has_neighbor_within(tt(ref), tt(rv), tt(q), tt(qv), radius))
+    ht = nn(tnb.has_neighbor_within(tt(ref), tt(rv), tt(q), tt(qv), torch.tensor(radius, dtype=torch.float64)))
+    np.testing.assert_array_equal(hf, ht)
+    want = np.asarray(jnb.min_sq_dist(jnp.asarray(ref), jnp.asarray(rv), jnp.asarray(q), jnp.asarray(qv)))
+    hw = np.asarray(jnb.has_neighbor_within(jnp.asarray(ref), jnp.asarray(rv), jnp.asarray(q), jnp.asarray(qv), radius))
+    edge = np.abs(want - radius**2) <= D2_ATOL + D2_RTOL * radius**2
+    assert np.all((hw == hf) | edge) and hf.any() and not hf.all()
 
 
 def test_min_sq_dist_no_valid_reference():

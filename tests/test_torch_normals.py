@@ -76,8 +76,14 @@ def _clouds():
 @pytest.mark.parametrize("cloud", ["three_planes", "random_masked"])
 def test_moments_match_reference_and_oracle(cloud):
     pts, mask, radius = _clouds()[cloud]
+    _check_against_reference_and_oracle(pts, mask, radius, tnb.radius_neighbor_moments_ref(tt(pts), tt(mask), radius))
+
+
+def _check_against_reference_and_oracle(pts, mask, radius, port):
+    """The port's (count, mean, cov) and the reference's against the
+    float64 oracle, at the tolerances of the module docstring."""
     cnt_o, mean_o, cov_o, amb = _oracle(pts, mask, radius)
-    cnt_t, mean_t, cov_t = (nn(a) for a in tnb.radius_neighbor_moments_ref(tt(pts), tt(mask), radius))
+    cnt_t, mean_t, cov_t = (nn(a) for a in port)
     cnt_j, mean_j, cov_j = (np.asarray(a) for a in jnb.radius_neighbor_moments(jnp.asarray(pts), jnp.asarray(mask), radius))
     sure = mask & ~amb
     assert amb.sum() <= 0.02 * mask.sum(), amb.sum()
@@ -90,6 +96,45 @@ def test_moments_match_reference_and_oracle(cloud):
     np.testing.assert_allclose(cov_j[sure], cov_t[sure], atol=1e-3 * scale)
     # invalid points: zeros in the port (the reference's rows there are unread)
     assert np.all(cnt_t[~mask] == 0) and np.all(mean_t[~mask] == 0) and np.all(cov_t[~mask] == 0)
+
+
+def _lattice(spacing=0.5, side=6):
+    """A cubic lattice `spacing` apart, away from the origin, a tenth of it
+    masked with NaN coordinates: every axial pair lies at exactly
+    d2 == spacing^2 in f32 (the differences and squares are exact), the
+    diagonal ones beyond."""
+    k = np.arange(side, dtype=np.float32) * np.float32(spacing)
+    pts = np.stack(np.meshgrid(k + 10.0, k - 3.0, k + 2.0, indexing="ij"), axis=-1).reshape(-1, 3).astype(np.float32)
+    mask = np.random.default_rng(5).uniform(size=len(pts)) > 0.1
+    pts[~mask] = np.nan
+    return pts, mask
+
+
+@pytest.mark.parametrize("cloud", ["three_planes", "random_masked", "lattice_at_radius"])
+def test_moments_radius_as_float_or_tensor(cloud):
+    """The plain K5 (and the wrapper on CPU tensors) with the radius as a
+    host float and as a 0-d f32 tensor: bit for bit the same.  On the two
+    clouds it is held to the reference and the oracle as in
+    test_moments_match_reference_and_oracle; on the lattice, where every
+    axial pair lies exactly at d2 == rho^2 and so every point is ambiguous
+    for the reference's hi/lo d2, the counts equal the oracle's exactly."""
+    if cloud == "lattice_at_radius":
+        (pts, mask), radius = _lattice(), 0.5
+    else:
+        pts, mask, radius = _clouds()[cloud]
+    as_float = tnb.radius_neighbor_moments_ref(tt(pts), tt(mask), radius)
+    for fn in (tnb.radius_neighbor_moments_ref, tnb.radius_neighbor_moments):
+        for a, b in zip(as_float, fn(tt(pts), tt(mask), torch.tensor(radius, dtype=torch.float32))):
+            assert torch.equal(a, b)
+    if cloud != "lattice_at_radius":
+        _check_against_reference_and_oracle(pts, mask, radius, as_float)
+        return
+    cnt_o, mean_o, cov_o, _ = _oracle(np.nan_to_num(pts), mask, radius)
+    cnt_t, mean_t, cov_t = (nn(a) for a in as_float)
+    np.testing.assert_array_equal(cnt_t, cnt_o)
+    assert cnt_t.max() == 7 and np.all(cnt_t[mask] >= 1)  # self and six axial neighbours inside
+    np.testing.assert_allclose(mean_t[mask], mean_o[mask], atol=2e-6)
+    np.testing.assert_allclose(cov_t[mask], cov_o[mask], atol=1e-5 * np.abs(cov_o[mask]).max())
 
 
 def test_nan_in_masked_slot_poisons_nothing():

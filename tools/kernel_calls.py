@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the K1-K4 calls (build_packed, gn_system, cand_errors, min_sq_dist)
-of the PyTorch port at chip_smoke.py's shapes, for this checkout or another
-one.
+"""Time the K1-K5 calls (build_packed, gn_system, cand_errors, min_sq_dist,
+radius_neighbor_moments) of the PyTorch port at chip_smoke.py's shapes, for
+this checkout or another one.
 
     python3 tools/kernel_calls.py
     python3 tools/kernel_calls.py --root path/to/other/checkout
@@ -11,8 +11,11 @@ The inputs are chip_smoke.py's scene problems (the same seeds): K1 at n =
 scalar on the card) and at n = 28,672 with the window's real masked share
 (chip_smoke.WINDOW_MASKED_SHARE), K2 at P = 30 over the window's packed
 rows and P = 594 over the 100-keyframe ring's, K3 at K = 15 over each of
-the three packed inputs, K4 at chip_smoke's two static-point queries, and
-the stable torch.sort of K1's keys at n = 28,672 on its own.  For each call
+the three packed inputs, K4 at chip_smoke's two static-point queries, K5 at
+chip_smoke's 4,096-point keyframe cloud (rho = 0.8 m) with the radius as a
+host number (the host pipeline's form) and as an f32 card scalar (the fused
+pipeline's), and the stable torch.sort of K1's keys at n = 28,672 on its
+own.  For each call
 it prints one JSON line, each number from chip_smoke.py's own helpers:
 
   ms               CUDA events after one warm-up call, over chip_smoke's
@@ -104,6 +107,11 @@ def main(argv=None):
     for n_ref, n_q in ((20480, 12288), (8192, 20480)):
         a = smoke._clouds(rng, n_ref, n_q, dev)
         rows.append(("min_sq_dist", f"refs={n_ref} queries={n_q}", lambda a=a: nb.min_sq_dist(*a), 20))
+    kpts, kmask, grid = smoke._keyframe_cloud(dev)
+    rho_card = 2.0 * torch.tensor(grid, dtype=torch.float32, device=dev)
+    for rho, label in ((2.0 * grid, "host float"), (rho_card, "card scalar")):
+        rows.append(("radius_neighbor_moments", f"N={kpts.shape[0]} rho={2.0 * grid} {label}",
+                     lambda r=rho: nb.radius_neighbor_moments(kpts, kmask, r), 20))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     steady = smoke.STEADY_REPS
