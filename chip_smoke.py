@@ -28,21 +28,52 @@ printed on its own lines and none of them caught:
      bench_config(), 50 scans of 20,000 points.  Launch counters are zeroed
      just before and read just after; every kernel must have run,
      kf_count >= 3, max_submap_span > 0 and the trajectory ATE against the
-     analytic truth <= 0.03 m;
+     analytic truth <= 0.03 m.  After scan SAVE_AT the run saves a
+     checkpoint (pipeline/checkpoint.py) into build/, outside the timed
+     scans;
+  (b) a fresh FusedDmsaSlam on the card loads that checkpoint and replays
+     scans SAVE_AT-49, counters zeroed just before and read just after:
+     the same keyframe count, keyframe positions and orientations within
+     FUSED_RESUME_TOL of the uninterrupted run's, ATE <= 0.03 m, K1-K4 launched
+     (and K5 where a keyframe was added);
+  (d) the fused run's trajectory and the analytic truth as TUM files under
+     build/, through `python -m dmsa_lidar_slam_tpu_torch.pipeline.evaluate`
+     in a subprocess: its ATE <= 0.03 m, and its RPE;
   4. the host pipeline through the CLI runner's entry point:
      pipeline.runner.run(--pipeline host) over a rosbag written from 40
      scans of bench_sequence(3) at bench_config() width (20,000 points per
      scan).  Counters zeroed just before and read just after: K4 and K5
      must have run, kf_count >= 3, Poses.txt and PointCloud.pcd written, and
      the output trajectory's ATE <= 0.03 m;
+  (c) DmsaSlam on the card over HOST_CK_SCANS bench scans, checkpointed at
+     HOST_SAVE_AT; a fresh DmsaSlam loads the checkpoint and replays the
+     rest, counters zeroed just before and read just after: the same
+     keyframes within HOST_RESUME_TOL, K4 and K5 launched;
+  (e) the two-scan alignment (dmsa/problems.py, the room scene of
+     tests/torch_scenes.py) from ~20 cm / ~40 mrad off through the
+     optimizer's autodiff path on the card: within 1 cm / 1 mrad of the
+     truth; iterations, stop reason and ms;
+  (f) the native PointCloud2 decoder (io/native.py) built with g++ from
+     the checkout (a failed build fails the phase) on the Ouster message of
+     one bench scan: bit for bit the numpy decoder's output;
   5. the CUDA kernels one call of each kernel row runs on the card
      (device_launches) and the card's busy time for it (device_ms), from
      torch.profiler over one call after a warm-up, those inside torch ops
-     included.  Last, because CUPTI tracing slows whatever runs while it is
-     on.
+     included.  After the pipelines, because CUPTI tracing slows whatever
+     runs while it is on;
+  (a) pipeline/traceutil.capture around TRACE_SCANS fused window scans
+     (the checkpoint loaded, then the next scans through process_scan):
+     device_busy_ms per scan and the top 10 of op_totals; the same
+     session's events read as _profile reads them: the two busy sums within
+     10% of each other, and every csrc kernel that _profile's reading saw,
+     and one of each launched wrapper's, with a nonzero time in the trace.
+     Last of all: the per-call profiles after a session this large (~10^5
+     kernels) came back without their card records.
 
 The line before the last is a JSON object with one entry per kernel and
-shape; the last line is {"ok": true, "device": {...}}.  Any failed check
+shape (launches: the sum over the fused, fused_resumed, host and
+host_resumed paths, each in launches_by_path); the last line is
+{"ok": true, "device": {...}}.  Any failed check
 raises, so a failing run prints no result.
 """
 
@@ -69,6 +100,14 @@ PEAK_F32_OPS_S = 67e12
 # --pipeline fused --scans 50 --mask-share; PERF.md).  The other kernel rows
 # mask 5%.
 WINDOW_MASKED_SHARE = 0.3
+SAVE_AT = 30  # the fused checkpoint: after scan 30 of N_SCANS (phases a, b)
+TRACE_SCANS = 3  # fused window scans under traceutil.capture (phase a)
+HOST_SAVE_AT, HOST_CK_SCANS = 17, 22  # the host checkpoint run (phase c): a keyframe at ~20
+# resumed keyframes against the uninterrupted run's, m and rad: on an H100
+# the fused pipeline repeated its bits (0: K1-K5 and its torch ops are
+# deterministic); the host pipeline's structured path sums with index_add_,
+# float atomics on the card (up to 1.9e-4; PERF.md section 6)
+FUSED_RESUME_TOL, HOST_RESUME_TOL = 1e-6, 1e-3
 
 
 def _bound(n_bytes, n_ops):
@@ -119,8 +158,7 @@ def _host_ms(fn, reps):
 
 def _profile(fn):
     """(device ms, kernels {name: (count, device us)}) of one call after a
-    warm-up, from torch.profiler: device ms is the card's busy time (kernels
-    and copies); copies and memsets are not kernels."""
+    warm-up, from torch.profiler (_events_busy)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -129,7 +167,15 @@ def _profile(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = prof.events()
+    return _events_busy(prof.events())
+
+
+def _events_busy(events):
+    """(device ms, kernels {name: (count, device us)}) of a profiler's
+    events: device ms is the card's busy time (kernels and copies); copies
+    and memsets are not kernels."""
+    import torch
+
     on_card = torch.autograd.DeviceType.CUDA
     host_names = {e.name for e in events if e.device_type != on_card}
     busy_us, kernels = 0.0, {}
@@ -137,8 +183,8 @@ def _profile(fn):
         if e.device_type == on_card and e.name not in host_names:
             busy_us += e.device_time
             if not e.name.startswith(("Memcpy", "Memset")):
-                c, us = kernels.get(e.name[:60], (0, 0.0))
-                kernels[e.name[:60]] = (c + 1, us + e.device_time)
+                c, us = kernels.get(e.name, (0, 0.0))
+                kernels[e.name] = (c + 1, us + e.device_time)
     return busy_us / 1000.0, kernels
 
 
@@ -409,29 +455,63 @@ def kernel_checks(device):
     return results, calls
 
 
-def pipeline_run(device):
-    import numpy as np
-    import torch
-
-    from dmsa_lidar_slam_tpu_torch.io.synthetic import ate_rmse, bench_config, bench_sequence
-    from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
-    from dmsa_lidar_slam_tpu_torch.pipeline.fused import FusedDmsaSlam
+def bench_data(n_scans, pts=PTS_PER_SCAN):
+    """bench_sequence(3) and its first n_scans scans of `pts` points with
+    their IMU: (seq, [(points, stamps, rings, imu stamps, acc, gyr)])."""
+    from dmsa_lidar_slam_tpu_torch.io.synthetic import bench_sequence
 
     seq = bench_sequence(3)
     data = []
     t_imu = seq.t_start - 0.2
-    for i in range(N_SCANS):
+    for i in range(n_scans):
         t_end = seq.t_start + (i + 1) * seq.sweep
         ts, acc, gyr = seq.imu_samples(t_imu, t_end)
-        data.append((*seq.scan(i, PTS_PER_SCAN, n_rings=16), ts, acc, gyr))
+        data.append((*seq.scan(i, pts, n_rings=16), ts, acc, gyr))
         t_imu = t_end
+    return seq, data
+
+
+def write_truth(seq, est_path, out_path):
+    """The analytic truth of `seq` at the stamps of a TUM file, as a TUM
+    file."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    rows = []
+    for stamp in np.loadtxt(est_path, ndmin=2)[:, 0]:
+        p = seq.pose(float(stamp))
+        rows.append([stamp, *p.position, *Rotation.from_rotvec(p.rotvec).as_quat()])
+    np.savetxt(out_path, np.asarray(rows), fmt="%.9f")
+    return len(rows)
+
+
+def feed(slam, scans):
+    """Each scan's IMU, then the scan."""
+    for pts, stamps, rings, ts, acc, gyr in scans:
+        slam.process_imu_batch(acc, gyr, ts)
+        slam.process_scan(pts, stamps, rings)
+
+
+def pipeline_run(device, seq, data, ckpt_path):
+    """The fused pipeline over `data`; saves the phase (b) checkpoint at scan
+    SAVE_AT.  Returns (slam, launches)."""
+    import numpy as np
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.io.synthetic import ate_rmse, bench_config
+    from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
+    from dmsa_lidar_slam_tpu_torch.pipeline.checkpoint import save_fused_checkpoint
+    from dmsa_lidar_slam_tpu_torch.pipeline.fused import FusedDmsaSlam
 
     slam = FusedDmsaSlam(bench_config(), flush_every=20, device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
     walls = []
-    for pts, stamps, rings, ts, acc, gyr in data:
+    for i, (pts, stamps, rings, ts, acc, gyr) in enumerate(data):
+        if i == SAVE_AT:  # phase (b)'s checkpoint, outside the timed scans
+            save_fused_checkpoint(slam, ckpt_path)
+            assert slam.kf_count >= 1, "no keyframe before the checkpoint"
         t0 = time.perf_counter()
         slam.process_imu_batch(acc, gyr, ts)
         slam.process_scan(pts, stamps, rings)
@@ -459,7 +539,7 @@ def pipeline_run(device):
     assert slam.kf_count >= 3, slam.kf_count
     assert slam.max_submap_span > 0, slam.max_submap_span
     assert ate <= ATE_GATE_M, f"ATE {ate} above {ATE_GATE_M}"
-    return launches
+    return slam, launches
 
 
 def host_run(device):
@@ -521,6 +601,257 @@ def host_run(device):
     return launches
 
 
+def _build_dir(name):
+    """A fresh directory under the checkout's git-ignored build/."""
+    import shutil
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def _kf_positions_diff(a, b):
+    """Largest |difference| of two runs' keyframe positions (m) and
+    orientations (rad); equal counts required."""
+    import numpy as np
+
+    assert a.kf_count == b.kf_count, (a.kf_count, b.kf_count)
+    _, ta, oa = a.keyframe_poses()
+    _, tb, ob = b.keyframe_poses()
+    return float(np.abs(ta - tb).max()), float(np.abs(oa - ob).max())
+
+
+def fused_resume(device, seq, data, full, ckpt_path):
+    """Phase (b): a fresh FusedDmsaSlam on the card loads the checkpoint of
+    scan SAVE_AT and replays the rest; its keyframes against the
+    uninterrupted run's.  Counters zeroed just before, read just after."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.io.synthetic import ate_rmse, bench_config
+    from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
+    from dmsa_lidar_slam_tpu_torch.pipeline.checkpoint import load_fused_checkpoint
+    from dmsa_lidar_slam_tpu_torch.pipeline.fused import FusedDmsaSlam
+
+    slam = load_fused_checkpoint(FusedDmsaSlam(bench_config(), flush_every=20, device=device), ckpt_path)
+    kf_updates0 = int(slam.state.kf.num_updates)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    feed(slam, data[SAVE_AT:])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    st, tr, _ = slam.all_poses()
+    ate = ate_rmse(st, tr, seq)
+    dpos, dori = _kf_positions_diff(slam, full)
+    new_kf = int(slam.state.kf.num_updates) - kf_updates0
+    out = dict(launches=launches, kf_count=slam.kf_count, keyframes_added=new_kf, kf_pos_max_diff_m=dpos,
+               kf_orient_max_diff_rad=dori, tolerance=FUSED_RESUME_TOL, ate_m=ate,
+               wall_ms_per_scan=1000.0 * wall / (N_SCANS - SAVE_AT))
+    print("  fused resumed at scan %d %s" % (SAVE_AT, json.dumps(out)), flush=True)
+    assert dpos <= FUSED_RESUME_TOL and dori <= FUSED_RESUME_TOL, (dpos, dori)
+    assert ate <= ATE_GATE_M, f"resumed ATE {ate} above {ATE_GATE_M}"
+    for k, v in launches.items():
+        assert v > 0 or (k == "radius_neighbor_moments" and new_kf == 0), f"kernel {k} never launched on resume"
+    return launches
+
+
+def _csrc_sources():
+    """{kernel function name: source file} of every __global__ in csrc/."""
+    import re
+
+    from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
+
+    out = {}
+    for f in sorted(cuda_lib.SRC_DIR.glob("*.cu")):
+        for name in re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", f.read_text()):
+            out[name] = f.name
+    return out
+
+
+def trace_phase(device, data, ckpt_path):
+    """Phase (a): traceutil.capture around TRACE_SCANS fused window scans
+    (a FusedDmsaSlam loads the scan-SAVE_AT checkpoint, then takes the next
+    scans through process_scan, after one warm-up replay).  The session is
+    read twice: traceutil from the Chrome trace, _profile's _events_busy
+    from the profiler's events.  The two busy sums must agree, and every
+    csrc kernel must show."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.io.synthetic import bench_config
+    from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
+    from dmsa_lidar_slam_tpu_torch.pipeline import traceutil
+    from dmsa_lidar_slam_tpu_torch.pipeline.checkpoint import load_fused_checkpoint
+    from dmsa_lidar_slam_tpu_torch.pipeline.fused import FusedDmsaSlam
+
+    slam = FusedDmsaSlam(bench_config(), flush_every=20, device=device)
+    scans = data[SAVE_AT : SAVE_AT + TRACE_SCANS]
+
+    def replay():
+        load_fused_checkpoint(slam, ckpt_path)
+        feed(slam, scans)
+
+    replay()
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    trace_dir = _build_dir("chip_smoke_trace")
+    t0 = time.perf_counter()
+    cap = traceutil.capture(trace_dir)
+    with cap:
+        replay()
+    wall = time.perf_counter() - t0
+    launched = {k for k, v in cuda_lib.LAUNCHES.items() if v}
+    busy, ops, opn = traceutil.op_totals(trace_dir)
+    assert abs(busy - traceutil.device_busy_ms(trace_dir)) <= 1e-9 * max(busy, 1.0)
+    profile_busy, profile_kernels = _events_busy(cap.profile.events())
+    sources = _csrc_sources()
+    in_trace = {}
+    for name, us in ops.items():
+        k = traceutil.csrc_kernel_name(name)
+        if k:
+            in_trace[k] = in_trace.get(k, 0.0) + us
+    in_profile = {traceutil.csrc_kernel_name(n) for n in profile_kernels} - {None}
+    top = sorted(ops.items(), key=lambda kv: -kv[1])[:10]
+    out = dict(scans=[SAVE_AT, SAVE_AT + TRACE_SCANS], device_busy_ms_per_scan=busy / TRACE_SCANS,
+               profile_busy_ms_per_scan=profile_busy / TRACE_SCANS, traced_wall_ms_per_scan=1000.0 * wall / TRACE_SCANS,
+               csrc_kernels_us={k: round(v, 3) for k, v in sorted(in_trace.items())},
+               top10=[(n[:70], round(us / 1000.0, 4), opn[n]) for n, us in top])
+    print("  trace " + json.dumps(out), flush=True)
+    gap = abs(busy - profile_busy) / max(profile_busy, 1e-9)
+    assert gap <= 0.10, f"traceutil busy {busy} ms vs _profile {profile_busy} ms: {gap:.1%} apart"
+    missing = sorted(k for k in in_profile if in_trace.get(k, 0.0) <= 0.0)
+    assert not missing, f"csrc kernels with no time in the trace: {missing}"
+    wrappers = {"build_packed": "k1_build.cu", "gn_system": "k2_gn.cu", "cand_errors": "k3_cand.cu",
+                "min_sq_dist": "k4_nn.cu", "radius_neighbor_moments": "k5_moments.cu"}
+    for w in launched:
+        assert any(sources.get(k) == wrappers[w] for k in in_trace), f"no {wrappers[w]} kernel in the trace"
+    assert {"build_packed", "gn_system", "cand_errors", "min_sq_dist"} <= launched, launched
+    return busy / TRACE_SCANS
+
+
+def evaluate_phase(slam, seq):
+    """Phase (d): the fused run's trajectory and the analytic truth as TUM
+    files under build/, through the evaluate CLI in a subprocess."""
+    import numpy as np
+
+    d = _build_dir("chip_smoke_eval")
+    est = slam.save_poses(d)
+    truth = os.path.join(d, "truth.txt")
+    n_poses = write_truth(seq, est, truth)
+    res = subprocess.run(
+        [sys.executable, "-m", "dmsa_lidar_slam_tpu_torch.pipeline.evaluate", est, truth],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, check=True,
+    )
+    out = json.loads(res.stdout)
+    print("  evaluate " + json.dumps(out), flush=True)
+    assert out["ate_rmse"] <= ATE_GATE_M, f"evaluate ATE {out['ate_rmse']} above {ATE_GATE_M}"
+    # the printed pairs are RPE's: every pose associated, 1-frame intervals
+    assert out["pairs"] == n_poses - 1 and np.isfinite(out["rpe_rmse"]), out
+
+
+def host_resume(device, data):
+    """Phase (c): DmsaSlam on the card over HOST_CK_SCANS scans, saved at
+    HOST_SAVE_AT; a fresh DmsaSlam loads the checkpoint and replays the
+    rest.  Counters zeroed just before the resumed run, read just after."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.io.synthetic import bench_config
+    from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
+    from dmsa_lidar_slam_tpu_torch.pipeline.checkpoint import load_checkpoint, save_checkpoint
+    from dmsa_lidar_slam_tpu_torch.pipeline.slam import DmsaSlam
+
+    ckpt = os.path.join(_build_dir("chip_smoke_host_ck"), "host.npz")
+    full = DmsaSlam(bench_config(), device=device)
+    feed(full, data[:HOST_SAVE_AT])
+    save_checkpoint(full, ckpt)
+    updates0 = full.kf_map.num_updates
+    feed(full, data[HOST_SAVE_AT:HOST_CK_SCANS])
+    slam = load_checkpoint(DmsaSlam(bench_config(), device=device), ckpt)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    feed(slam, data[HOST_SAVE_AT:HOST_CK_SCANS])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    assert slam.kf_map.count == full.kf_map.count and slam.kf_map.num_updates == full.kf_map.num_updates
+    n = slam.kf_map.count
+    dpos = float(abs(slam.kf_map.transl_w[:n] - full.kf_map.transl_w[:n]).max())
+    dori = float(abs(slam.kf_map.orient_w[:n] - full.kf_map.orient_w[:n]).max())
+    out = dict(launches=launches, kf_count=n, keyframes_added=slam.kf_map.num_updates - updates0,
+               kf_pos_max_diff_m=dpos, kf_orient_max_diff_rad=dori, tolerance=HOST_RESUME_TOL,
+               wall_ms_per_scan=1000.0 * wall / (HOST_CK_SCANS - HOST_SAVE_AT))
+    print("  host resumed at scan %d %s" % (HOST_SAVE_AT, json.dumps(out)), flush=True)
+    assert dpos <= HOST_RESUME_TOL and dori <= HOST_RESUME_TOL, (dpos, dori)
+    assert slam.kf_map.num_updates > updates0, "no keyframe in the resumed scans"
+    for k in ("min_sq_dist", "radius_neighbor_moments"):
+        assert launches[k] > 0, f"kernel {k} never launched on the resumed host path"
+    return launches
+
+
+def two_scan_phase(device):
+    """Phase (e): the two-scan alignment (dmsa.problems) through the
+    optimizer's autodiff path on the card, from ~20 cm / ~40 mrad off."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.dmsa import optimizer as opt
+    from dmsa_lidar_slam_tpu_torch.dmsa import problems
+    from tests.torch_scenes import TWO_SCAN_PERTURBATION, pose_errors, two_scan_problem
+
+    arrays, true = two_scan_problem()
+    shapes = problems.ScanAlignShapes(n_scans=2, n_pts=arrays[0].shape[1])
+    data = problems.ScanAlignData(*(torch.as_tensor(a, device=device) for a in arrays))
+    settings = opt.OptimSettings(num_iter=40, step_length_optim=0.3, max_step=0.3, min_num_points_per_set=6,
+                                 min_num_gaussians=10, epsilon=1e-7)
+    init = torch.as_tensor(true + TWO_SCAN_PERTURBATION, device=device)
+    fwd = problems.make_forward(shapes)
+    opt.optimize(fwd, init, data, settings, 0.3)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = opt.optimize(fwd, init, data, settings, 0.3)
+    torch.cuda.synchronize()
+    ms = 1000.0 * (time.perf_counter() - t0)
+    dt, dr = pose_errors(res.params.cpu().numpy(), true)
+    dt0, dr0 = pose_errors(true + TWO_SCAN_PERTURBATION, true)
+    out = dict(start_err_m=dt0, start_err_rad=dr0, err_m=dt, err_rad=dr, iterations=int(res.num_iters),
+               stop_reason=int(res.stop_reason), num_gaussians=int(res.num_gaussians), ms=ms)
+    print("  two-scan alignment " + json.dumps(out), flush=True)
+    assert dt <= 0.01 and dr <= 0.001, (dt, dr)
+
+
+def native_phase():
+    """Phase (f): the native PointCloud2 decoder, built from the checkout's
+    source (a failed build fails the phase), on an Ouster message of one
+    bench scan, bit for bit against the numpy decoder."""
+    import numpy as np
+
+    from dmsa_lidar_slam_tpu_torch.io import native
+    from dmsa_lidar_slam_tpu_torch.io import pointcloud2 as pc2
+    from dmsa_lidar_slam_tpu_torch.io.synthetic import bench_sequence
+    from tests.torch_bag import serialize_ouster_scan
+
+    t0 = time.perf_counter()
+    so = native.build()
+    build_s = time.perf_counter() - t0
+    assert native.available(), "the native decoder does not load"
+    pts, stamps, rings = bench_sequence(3).scan(20, PTS_PER_SCAN, n_rings=16)
+    msg = pc2.parse_pointcloud2(serialize_ouster_scan(pts, stamps, rings))
+    t0 = time.perf_counter()
+    got = native.decode_points(msg, "ouster")
+    native_ms = 1000.0 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    want = pc2.decode_points(msg, "ouster")
+    numpy_ms = 1000.0 * (time.perf_counter() - t0)
+    equal = got is not None and all(
+        a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b) for a, b in zip(got, want)
+    )
+    out = dict(library=os.path.relpath(so, os.path.dirname(os.path.abspath(__file__))), build_s=build_s,
+               points=int(msg.width), bitwise_equal=equal, host_native_ms=native_ms, host_numpy_ms=numpy_ms)
+    print("  native decode " + json.dumps(out), flush=True)
+    assert equal, "native decode differs from the numpy decoder"
+
+
 def main():
     import torch
 
@@ -548,21 +879,40 @@ def main():
     print(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc {cuda_lib.BUILD_SECONDS} s) "
           f"-> {cuda_lib.library_path()}", flush=True)
 
-    print("kernels vs plain versions:", flush=True)
-    results, calls = kernel_checks(device)
-    print("main path, fused pipeline:", flush=True)
-    fused = pipeline_run(device)
-    print("main path, host pipeline (CLI runner):", flush=True)
-    host = host_run(device)
+    def phase(title, fn, *args):
+        print(title, flush=True)
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"  ({time.perf_counter() - t:.1f} s)", flush=True)
+        return out
+
+    results, calls = phase("kernels vs plain versions:", kernel_checks, device)
+    seq, data = bench_data(N_SCANS)
+    ckpt = os.path.join(_build_dir("chip_smoke_fused_ck"), "fused.npz")
+    paths = {}
+    full, paths["fused"] = phase("main path, fused pipeline:", pipeline_run, device, seq, data, ckpt)
+    paths["fused_resumed"] = phase(f"(b) fused pipeline resumed from its checkpoint at scan {SAVE_AT}:",
+                                   fused_resume, device, seq, data, full, ckpt)
+    phase("(d) the fused trajectory through the evaluate CLI:", evaluate_phase, full, seq)
+    del full
+    paths["host"] = phase("main path, host pipeline (CLI runner):", host_run, device)
+    paths["host_resumed"] = phase(f"(c) host pipeline resumed from its checkpoint at scan {HOST_SAVE_AT}:",
+                                  host_resume, device, data)
+    phase("(e) two-scan alignment, autodiff optimizer path:", two_scan_phase, device)
+    phase("(f) native PointCloud2 decode:", native_phase)
     print("CUDA kernels per call (torch.profiler):", flush=True)
     for r, fn in zip(results, calls):
         device_ms, kernels = _profile(fn)
         r["device_ms"], r["device_launches"] = device_ms, sum(c for c, _ in kernels.values())
         print(f"  {r['name']:55s} kernels={r['device_launches']} device={device_ms:.4f} ms", flush=True)
+    # after the per-call profiles: on an H100 the profiles taken after a
+    # session this large (~10^5 kernels) lacked their card records
+    # (PERF.md section 6)
+    phase(f"(a) {TRACE_SCANS} fused window scans under traceutil.capture:", trace_phase, device, data, ckpt)
     for r in results:
         k = r["name"].split()[0]
-        r["launches"] = fused[k] + host[k]
-        r["launches_by_path"] = {"fused": fused[k], "host": host[k]}
+        r["launches"] = sum(p[k] for p in paths.values())
+        r["launches_by_path"] = {name: p[k] for name, p in paths.items()}
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -2,7 +2,8 @@
 
 Both packages' FusedState / DeviceMapState carry the same field names,
 shapes and dtypes, so a reference state given as numpy arrays converts leaf
-by leaf.  Config is the same dataclass in both packages.
+by leaf, and the fused checkpoint stores the leaves in the reference's
+flatten order (state_leaves).  Config is the same dataclass in both packages.
 """
 
 import numpy as np
@@ -35,3 +36,29 @@ def state_to_numpy(state: FusedState) -> FusedState:
     kf = DeviceMapState(**{f: n(getattr(state.kf, f)) for f in DeviceMapState._fields})
     fields = {f: n(getattr(state, f)) for f in FusedState._fields if f != "kf"}
     return FusedState(kf=kf, **fields)
+
+
+def state_leaves(state: FusedState) -> list:
+    """The leaves of a FusedState in the order jax.tree.flatten gives the
+    reference's: its fields in order, with the DeviceMapState's fields
+    flattened in place at `kf` (the fused checkpoint's leaf{i} order)."""
+    out = []
+    for f in FusedState._fields:
+        if f == "kf":
+            out.extend(getattr(state.kf, g) for g in DeviceMapState._fields)
+        else:
+            out.append(getattr(state, f))
+    return out
+
+
+def state_from_leaves(leaves) -> FusedState:
+    """Inverse of state_leaves: a FusedState of the given leaves, as they
+    are (numpy arrays or tensors)."""
+    leaves = list(leaves)
+    n_kf = len(DeviceMapState._fields)
+    n = len(FusedState._fields) - 1 + n_kf
+    if len(leaves) != n:
+        raise ValueError(f"{len(leaves)} leaves, a FusedState has {n}")
+    i = FusedState._fields.index("kf")
+    kf = DeviceMapState(*leaves[i : i + n_kf])
+    return FusedState(*leaves[:i], kf, *leaves[i + n_kf :])

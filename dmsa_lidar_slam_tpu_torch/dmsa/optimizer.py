@@ -14,11 +14,14 @@ damped step with an infinity-norm clip, and run the line search.
     form per-point residual gradient contracted against the problem's
     pose-table Jacobian (torch.func.jacfwd over the small table graph),
     J^T J in the pose dtype, and the line search as a loop over the step
-    fractions, each a forward plus the frozen cell residuals.
+    fractions, each a forward plus the frozen cell residuals;
+  - autodiff path (neither given; the two-scan problem of dmsa.problems):
+    the residual vector over the merged cells of both resolutions and its
+    Jacobian by forward-mode AD (value_and_jacfwd), and the line search as
+    one batched pass over the step fractions (torch.func.vmap).
 
-The autodiff path (no structured_fn, no tabular_fn) is not ported.  The
-loop stops on the host when an iteration sets `done` (one device sync per
-iteration).
+The loop stops on the host when an iteration sets `done` (one device sync
+per iteration).
 """
 
 import dataclasses
@@ -72,6 +75,7 @@ class OptimSettings:
     min_num_gaussians: int = 30
     lambda_diag: float = 1e-5
     use_centralization: bool = True
+    jacobian_chunk: int = 128  # tangents per forward-mode block (memory bound)
     line_search_fracs: tuple = (
         0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 0.05, 0.02, 0.01, 0.005, 0.002,
     )
@@ -84,6 +88,41 @@ class OptimResult(NamedTuple):
     final_error: torch.Tensor
     initial_error: torch.Tensor
     num_gaussians: torch.Tensor
+
+
+def chunked_jacfwd(fn: Callable, params: torch.Tensor, chunk: int) -> torch.Tensor:
+    """J[i, j] = d fn(params)_i / d params_j, `chunk` tangents at a time."""
+    return value_and_jacfwd(fn, params, chunk)[1]
+
+
+def value_and_jacfwd(fn: Callable, params: torch.Tensor, chunk: int):
+    """(fn(params), J [R, P]) by forward-mode AD: torch.func.jvp under
+    torch.func.vmap over each block of `chunk` unit tangents.  Inside a
+    block the primal runs once, unbatched beside the batched tangents, and
+    the first block's primal output is the value, so no separate forward
+    pass is needed; with P <= chunk (the default 128 covers the two-scan
+    problem and the window) the whole Jacobian costs one primal pass, as
+    the reference's one jax.linearize does."""
+    p = params.shape[0]
+    eye = torch.eye(p, dtype=params.dtype, device=params.device)
+    push = torch.func.vmap(lambda t: torch.func.jvp(fn, (params,), (t,)), out_dims=(None, 0))
+    e0, cols = None, []
+    for start in range(0, p, chunk):
+        e, block = push(eye[start : start + chunk])  # [R], [chunk, R]
+        e0 = e if e0 is None else e0
+        cols.append(block)
+    return e0, torch.cat(cols, dim=0).T
+
+
+def residuals(forward_fn, params, merged_cells, data):
+    """Residual vector over the merged per-resolution cell layout (one pass
+    instead of one per resolution).  Its squared total equals the per-
+    resolution layout's, so it interchanges with the structured path's e0
+    in every dot product."""
+    out = forward_fn(params, data)
+    res = gaussians.cell_residuals(out.points, out.mask, merged_cells)
+    rdt = torch.promote_types(res.dtype, out.extra.dtype)
+    return torch.cat([res.to(rdt), out.extra.to(rdt)])
 
 
 def _iteration(forward_fn, tabular_fn, params, data, settings, min_grid_size, step_length, max_step):
@@ -207,10 +246,37 @@ def _iteration_structured(forward_fn, structured_fn, params, data, settings, min
     cand_params = params[None, :] + ks[:, None] * step[None, :]
     cand_err = []
     for p in cand_params:  # one forward and one frozen-cell residual pass per step fraction
-        o = forward_fn(p, data)
-        e = torch.cat([gaussians.cell_residuals(o.points, o.mask, merged).to(rdt), o.extra.to(rdt)])
+        e = residuals(forward_fn, p, merged, data)
         cand_err.append(torch.dot(e, e))
     errs = torch.stack([error0] + cand_err)
+    cand_params = torch.cat([params[None, :], cand_params], dim=0)
+    return _finish(params, cand_params, errs, step, nan_step, n_gauss, settings)
+
+
+def _iteration_autodiff(forward_fn, params, data, settings, min_grid_size, step_length, max_step):
+    """One Gauss-Newton iteration on the forward-mode Jacobian of the
+    residuals over the frozen merged cells; the line search evaluates the
+    14 step fractions in one batched pass."""
+    pdt, dev = params.dtype, params.device
+    num_params = params.shape[0]
+    out = forward_fn(params, data)
+    cells = _build_all_cells(out, settings, min_grid_size)
+    merged = gaussians.concat_cells(cells, out.points.shape[0])
+
+    def res_fn(p):
+        return residuals(forward_fn, p, merged, data)
+
+    e0, J = value_and_jacfwd(res_fn, params, settings.jacobian_chunk)
+    n_gauss = sum(c.num_valid.to(torch.int64) for c in cells)
+    error0 = torch.dot(e0, e0)
+
+    H = J.T @ J + settings.lambda_diag * torch.eye(num_params, dtype=J.dtype, device=dev)
+    step, nan_step = _clipped_step(H, J.T @ e0, step_length, max_step)
+
+    ks = torch.tensor(settings.line_search_fracs, dtype=pdt, device=dev)
+    cand_params = params[None, :] + ks[:, None] * step[None, :]
+    cand_err = torch.func.vmap(lambda p: (lambda e: torch.dot(e, e))(res_fn(p)))(cand_params)
+    errs = torch.cat([error0[None], cand_err])
     cand_params = torch.cat([params[None, :], cand_params], dim=0)
     return _finish(params, cand_params, errs, step, nan_step, n_gauss, settings)
 
@@ -227,7 +293,8 @@ def optimize(
     structured_fn: Optional[Callable] = None,
 ) -> OptimResult:
     """Run the DMSA optimization on the tabular (kernel) path when
-    tabular_fn is given, else on the structured path.
+    tabular_fn is given, on the structured path when structured_fn is
+    given, else on the autodiff path.
 
     structured_fn(params, data) -> (ForwardOut, contract, J_extra [E, P]),
     where contract(grad3 [N, 3]) -> [N, P] maps per-point residual
@@ -239,7 +306,7 @@ def optimize(
     elif structured_fn is not None:
         iteration = functools.partial(_iteration_structured, forward_fn, structured_fn)
     else:
-        raise ValueError("the port has the tabular and structured optimizer paths only")
+        iteration = functools.partial(_iteration_autodiff, forward_fn)
     dev, pdt = params0.device, params0.dtype
     step_length = settings.step_length_optim if step_length is None else step_length
     max_step = settings.max_step if max_step is None else max_step

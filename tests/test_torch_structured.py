@@ -157,6 +157,16 @@ def test_window_and_map_helpers_match_reference():
 
 
 def test_optimize_needs_a_jacobian_path():
+    """Given neither structured_fn nor tabular_fn, optimize takes its
+    autodiff Jacobian path (tests/test_torch_problems.py): on the same
+    cells, one iteration lands where the structured path's does, to 1e-6
+    (the two Jacobians agree to f32 rounding)."""
     (_, _, _), (tst, tfwd, tdata), params, min_grid = _problems("window", False)
-    with pytest.raises(ValueError):
-        topt.optimize(tfwd, tt(params), tdata, topt.OptimSettings(num_iter=1), min_grid)
+    settings = topt.OptimSettings(num_iter=1, step_length_optim=0.2, max_step=0.3, min_num_points_per_set=6,
+                                  min_num_gaussians=10)
+    ra = topt.optimize(tfwd, tt(params), tdata, settings, min_grid)
+    rs = topt.optimize(tfwd, tt(params), tdata, settings, min_grid, structured_fn=tst)
+    assert int(ra.num_iters) == int(rs.num_iters) == 1
+    assert int(ra.stop_reason) == int(rs.stop_reason) and int(ra.num_gaussians) == int(rs.num_gaussians)
+    assert float(torch.linalg.norm(rs.params - tt(params))) > 1e-3
+    np.testing.assert_allclose(nn(ra.params), nn(rs.params), atol=1e-6)

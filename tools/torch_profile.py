@@ -14,16 +14,16 @@ line:
   kf_count, ate_m      keyframes and the output trajectory's ATE;
   profiled scans       the last --profile scans under torch.profiler (after
                        the timed ones: CUPTI tracing slows every launch
-                       while it is on): kernel launches (cudaLaunchKernel
-                       calls), stream / device syncs and copy calls per scan,
-                       device busy ms per scan (the sum of kernel and copy
-                       times; the pipeline's own stage annotations left
-                       out) and its share of the profiled wall time, and
-                       the top kernels by device time, and the launches
-                       and device ms per scan of each of the port's own
-                       kernels (csrc/, whose kernels all live in anonymous
-                       namespaces).  Reading the trace
-                       costs minutes at ~10^5 launches per scan, so keep
+                       while it is on), read from the trace that
+                       pipeline/traceutil.capture writes: kernel launches
+                       (cudaLaunchKernel calls), stream / device syncs and
+                       copy calls per scan, device busy ms per scan
+                       (traceutil.device_busy_ms: kernel, copy and memset
+                       spans) and its share of the profiled wall time, the
+                       top kernels by device time, and the launches and
+                       device ms per scan of each of the port's own kernels
+                       (csrc/, traceutil.csrc_kernel_name).  Exporting the
+                       trace takes seconds per 10^5 launches, so keep
                        --profile small;
   launches             the port's own kernel counters over the whole run;
   k1_masked_share      with --mask-share (fused pipeline): per K1 input
@@ -33,7 +33,8 @@ line:
                        timed runs.
 
 --root imports the port from another checkout, so that two commits can be
-compared in one run on one card.  Needs a CUDA card; exits non-zero
+compared in one run on one card (--profile needs a checkout that has
+pipeline/traceutil.py).  Needs a CUDA card; exits non-zero
 without one.
 """
 
@@ -42,14 +43,6 @@ import json
 import os
 import sys
 import time
-
-
-def _port_kernel(name):
-    """The csrc kernel's name in a profiler kernel name, or None."""
-    tag = "(anonymous namespace)::"
-    if tag not in name:
-        return None
-    return name.split(tag, 1)[1].split("(", 1)[0].split("<", 1)[0]
 
 
 def main(argv=None):
@@ -64,7 +57,6 @@ def main(argv=None):
     sys.path.insert(0, os.path.abspath(args.root))
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA card")
@@ -106,39 +98,31 @@ def main(argv=None):
         fr.build_packed = counted
 
     a, b = args.scans - args.profile, args.scans
-    walls, prof, prof_wall = [], None, 0.0
-    for i, (pts, stamps, rings, ts, acc, gyr) in enumerate(data):
-        if i == a:
-            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            prof.__enter__()
-        t0 = time.perf_counter()
-        slam.process_imu_batch(acc, gyr, ts)
-        slam.process_scan(pts, stamps, rings)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        if prof is None:
-            walls.append((i, dt))
-        else:
-            prof_wall += dt
+
+    def run(scans):
+        """Feed the scans, syncing after each; their host seconds."""
+        out = []
+        for pts, stamps, rings, ts, acc, gyr in scans:
+            t0 = time.perf_counter()
+            slam.process_imu_batch(acc, gyr, ts)
+            slam.process_scan(pts, stamps, rings)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    walls = list(enumerate(run(data[:a])))
     prof_out = {}
-    if prof is not None:
-        prof.__exit__(None, None, None)
-        events = prof.events()
-        cpu_counts = {}
-        for e in events:
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                cpu_counts[e.name] = cpu_counts.get(e.name, 0) + 1
-        kernels, launches = {}, {}
-        for e in events:
-            # GPU-side copies of the CPU stage annotations are not device work
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in cpu_counts:
-                kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time
-                launches[e.name] = launches.get(e.name, 0) + 1
-        busy_us = sum(kernels.values())
+    if b > a:
+        from dmsa_lidar_slam_tpu_torch.pipeline import traceutil
+
+        with traceutil.capture() as trace_dir:
+            prof_wall = sum(run(data[a:b]))
+        busy_ms, kernels, launches = traceutil.op_totals(trace_dir)
+        calls = traceutil.host_call_counts(trace_dir)
         n_prof = b - a
         port = {}  # csrc kernel -> [launches, device ms] per scan
         for k, v in kernels.items():
-            name = _port_kernel(k)
+            name = traceutil.csrc_kernel_name(k)
             if name:
                 c = port.setdefault(name, [0.0, 0.0])
                 c[0] += launches[k] / n_prof
@@ -146,12 +130,12 @@ def main(argv=None):
         prof_out = dict(
             profiled_scans=[a, b],
             profiled_wall_ms_per_scan=1000.0 * prof_wall / n_prof,
-            launches_per_scan=cpu_counts.get("cudaLaunchKernel", 0) / n_prof,
-            syncs_per_scan=(cpu_counts.get("cudaStreamSynchronize", 0) + cpu_counts.get("cudaDeviceSynchronize", 0))
-            / n_prof,
-            memcpy_calls_per_scan=cpu_counts.get("cudaMemcpyAsync", 0) / n_prof,
-            device_busy_ms_per_scan=busy_us / 1000.0 / n_prof,
-            device_busy_share=busy_us / 1e6 / max(prof_wall, 1e-9),
+            trace_dir=trace_dir,
+            launches_per_scan=calls.get("cudaLaunchKernel", 0) / n_prof,
+            syncs_per_scan=(calls.get("cudaStreamSynchronize", 0) + calls.get("cudaDeviceSynchronize", 0)) / n_prof,
+            memcpy_calls_per_scan=calls.get("cudaMemcpyAsync", 0) / n_prof,
+            device_busy_ms_per_scan=busy_ms / n_prof,
+            device_busy_share=busy_ms / 1e3 / max(prof_wall, 1e-9),
             top_kernels_ms_per_scan=[
                 (k[:80], v / 1000.0 / n_prof) for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[: args.top]
             ],
