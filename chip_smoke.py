@@ -56,6 +56,33 @@ printed on its own lines and none of them caught:
   (f) the native PointCloud2 decoder (io/native.py) built with g++ from
      the checkout (a failed build fails the phase) on the Ouster message of
      one bench scan: bit for bit the numpy decoder's output;
+  (g) the distributed keyframe adjustment (parallel/*) at the shipped
+     100-keyframe ring (100 x 4,096 points, P = 594; DIST_SHAPE), a
+     synthetic map with gravity and odometry terms and normals, poses
+     perturbed, all at the pipelines' keyframe settings (DIST_OPT: the
+     shipped 10 iterations): (g1) the single-card tabular optimizer (K1-K3,
+     K2's dense-J path), the shipped call and then its iterations one call
+     each (the same params bit for bit): the keyframe position error after
+     G1_DESCENT_ITERS at most G1_DESCENT_GAIN of the start's, after the
+     shipped call at most G1_SHIPPED_GAIN of it; K1-K3 against their plain
+     versions at the per-rank shapes of the spatial backend (the rows rank
+     0 receives at 2 ranks and at 1); (g2) parallel.spatial at world size 1
+     over NCCL: no overflow, K1-K3 launched, parameters within
+     G2_PARAM_TOL of (g1)'s; (g4) the hash backend at world size 1, its
+     parameter error at most HASH_GAIN of the start's; then 2 spawned ranks
+     sharing the card over gloo, counters zeroed and read in each rank:
+     (g3) parallel.spatial, the shipped call (no overflow, K1-K3 launched
+     on each rank, bit-identical parameters; its distance to (g1) printed:
+     the rank count reorders the block sums, and late iterations amplify
+     that) and one iteration from (g1)'s params after each count of
+     DIST_STEP_FROM, keyframe positions within DIST_STEP_TOL_M of (g1)'s
+     next; (g4) the hash backend at bench_config's 16-keyframe submap,
+     bit-identical, the error falling; (g5) FusedDmsaSlam with
+     distributed_keyframe_opt over the first DIST_FUSED_SCANS bench scans
+     (cut in depth from 50): the ranks' keyframes bit for bit the same,
+     ATE <= 0.03 m, a submap span > 0, no overflow, keyframe positions
+     within FUSED_DIST_TOL_M of the one-rank run's checkpoint at that scan,
+     and a one-rank run with the submap step off farther than that;
   5. the CUDA kernels one call of each kernel row runs on the card
      (device_launches) and the card's busy time for it (device_ms), from
      torch.profiler over one call after a warm-up, those inside torch ops
@@ -71,8 +98,9 @@ printed on its own lines and none of them caught:
      kernels) came back without their card records.
 
 The line before the last is a JSON object with one entry per kernel and
-shape (launches: the sum over the fused, fused_resumed, host and
-host_resumed paths, each in launches_by_path); the last line is
+shape (launches: the sum over the fused, fused_resumed, host,
+host_resumed, single_card_100kf (g1) and distributed ((g2), and (g3) and
+(g5) on both ranks) paths, each in launches_by_path); the last line is
 {"ok": true, "device": {...}}.  Any failed check
 raises, so a failing run prints no result.
 """
@@ -108,6 +136,41 @@ HOST_SAVE_AT, HOST_CK_SCANS = 17, 22  # the host checkpoint run (phase c): a key
 # deterministic); the host pipeline's structured path sums with index_add_,
 # float atomics on the card (up to 1.9e-4; PERF.md section 6)
 FUSED_RESUME_TOL, HOST_RESUME_TOL = 1e-6, 1e-3
+# phase (g), the distributed keyframe adjustment (parallel/*): the shipped
+# 100-keyframe ring at the keyframe cap (409,600 points, P = 594) and
+# bench_config's 16-keyframe submap (65,536 points, P = 90), each keyframe
+# its own sample of the room scene (tests/torch_dist.keyframe_problem),
+# with gravity and odometry terms and normals for the split channel, every
+# keyframe pose perturbed by 5 mrad / 2 cm
+DIST_SHAPE, DIST_HASH_SHAPE = (100, 4096), (16, 4096)
+DIST_SEED, DIST_POSE_NOISE = 21, (0.005, 0.02)
+DIST_GRIDS = (0.5, 1.25)  # 2 and 5 x the keyframes' 0.25 m grid
+# the pipelines' keyframe settings: Config's num_iter_keyframe_optim,
+# min_num_points_gauss_key, alpha_keyframe_optim and epsilon_keyframe_opt,
+# and their max_step (checked against Config in dist_phase)
+DIST_OPT = dict(num_iter=10, min_points=6, step_length=0.3, max_step=0.01, epsilon=1e-4, use_gravity=True,
+                use_odometry=True)
+HASH_OPT = dict(num_iter=14, min_points=6, step_length=0.3, max_step=0.1, table_size=65536, use_gravity=True,
+                use_odometry=True)
+DIST_FUSED_SCANS = SAVE_AT  # (g5): the fused pipeline over 2 ranks to the phase (b) checkpoint
+# (g1): the keyframe position RMS error after G1_DESCENT_ITERS iterations at
+# most G1_DESCENT_GAIN of the start's, and after the shipped call at most
+# G1_SHIPPED_GAIN of it.  On this map the error falls for the first
+# iterations and then rises while the valid cells thin out, in the JAX
+# package and the port alike (tools/dist_convergence.py --reference;
+# PERF.md section 7), so the shipped count is held to what both do
+G1_DESCENT_ITERS, G1_DESCENT_GAIN, G1_SHIPPED_GAIN = 6, 0.70, 1.0
+G2_PARAM_TOL = 1e-4  # (g2) against (g1): the same exact cells, K2/K3 sums of the same rows
+# (g3): one 2-rank iteration from (g1)'s params after each of these counts,
+# against (g1)'s next ones: keyframe positions within DIST_STEP_TOL_M, ~3x
+# the 0.086 mm the card showed (the rank count changes only the order of the
+# K2/K3 block sums; the near-singular chain solve carries that into the step)
+DIST_STEP_FROM, DIST_STEP_TOL_M = (0, 9), 3e-4
+HASH_GAIN = 0.65  # (g4): parameter error at most this share of the start's, tests/test_keyframe_dist.py:60
+# (g5) against the one-rank run, ~3x the 0.18 mm the card showed; the run
+# with the submap step off must be farther than this from it (1.24 mm)
+FUSED_DIST_TOL_M = 5e-4
+DIST_RANK_TIMEOUT_S = 480  # the 2-rank sub-phases (g3)-(g5), start-up included
 
 
 def _bound(n_bytes, n_ops):
@@ -264,6 +327,129 @@ def _keyframe_cloud(device):
     return kpts, kmask, grid
 
 
+def _record(results, calls, name, src, replaces, err, tol, fn, reps, plain_fn, plain_reps, shape, n_bytes, n_ops):
+    """Time one kernel row (ms, plain_ms, ms_steady, host_ms, bound_ms),
+    print it, check its error against the tolerance and append it to
+    `results` (and its call to `calls`, for the per-call profiles)."""
+    ok = bool(err <= tol)
+    ms = _timed(fn, reps)
+    plain_ms = _timed(plain_fn, plain_reps)
+    ms_steady = _timed(fn, STEADY_REPS, warmup=STEADY_REPS)
+    host_ms = _host_ms(fn, STEADY_REPS)
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    print(f"  {name:23s} {shape:34s} max_abs_err={err:.3e} tol={tol:.3e} "
+          f"kernel={ms:.4f} ms steady={ms_steady:.4f} ms host={host_ms:.4f} ms plain={plain_ms:.4f} ms "
+          f"bound={bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
+    assert ok, f"{name} at {shape}: error {err} above tolerance {tol}"
+    # library_ms: no single PyTorch call computes any of these functions
+    # (K4's nearest distance is cdist then amin, two calls; see PERF.md)
+    results.append(dict(name=f"{name} {shape}", route="cuda", source=src, replaces=replaces,
+                        max_abs_err=float(err), tolerance=float(tol), ms=float(ms), ms_steady=float(ms_steady),
+                        host_ms=float(host_ms), plain_ms=float(plain_ms), bound_ms=float(bound_ms),
+                        bound_by=bound_by, library_ms=None, bytes=int(n_bytes), operations=int(n_ops)))
+    calls.append(fn)
+
+
+def _k1_build(args):
+    """K1 on `args` (build_packed's) against its plain version: the packed
+    rows and lamw6's error relative to its scale, after the structural
+    checks (counts, xs / w / tidx / run-start rows exact, 1/count rows,
+    cell means)."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
+
+    pk, nv, nr = fr.build_packed(*args)
+    again = fr.build_packed(*args)
+    assert all(torch.equal(a, b) for a, b in zip((pk, nv, nr), again)), "K1: not repeatable"
+    pk_r, nv_r, nr_r = fr.build_packed_ref(*args)
+    torch.cuda.synchronize()
+    assert int(nv) == int(nv_r) and int(nr) == int(nr_r), (int(nv), int(nv_r), int(nr), int(nr_r))
+    exact = torch.equal(pk[12:15], pk_r[12:15]) and torch.equal(pk[0:3], pk_r[0:3])
+    assert exact, "K1: xs / w / tidx / run-start rows must match exactly"
+    sel = pk_r[6:12].abs().sum(0) > 0
+    assert float((pk[15] - pk_r[15]).abs().max()) <= 1e-6, "K1: 1/count rows differ"
+    mu_err = float((pk[3:6][:, sel] - pk_r[3:6][:, sel]).abs().max())
+    assert mu_err <= 2e-4, f"K1: cell means differ by {mu_err} m"
+    # lamw6: f32 moments in another order (about the run's first member vs
+    # two-pass), amplified by the eigenvalue floor; relative to the lamw6
+    # scale, as the reference's kernel test
+    scale = float(pk_r[6:12][:, sel].abs().max())
+    return pk, float((pk[6:12][:, sel] - pk_r[6:12][:, sel]).abs().max()) / scale, int(nr_r)
+
+
+def _k1_row(results, calls, args_by_grid, label):
+    """K1 at each grid of `args_by_grid`, one row timed at the last; returns
+    the packed rows of both grids, concatenated as the optimizer does."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
+
+    builds = [_k1_build(args) for args in args_by_grid]
+    args = args_by_grid[-1]
+    n, dtab = args[0].shape[0], args[7].shape[0]
+    # bytes: points, mask, rings, local points, int64 table index and the
+    # table in; the [16, n] packed rows out.  operations: ~45 per point
+    # (transform, moments), ~200 per occupied cell (floored inverse)
+    _record(results, calls, "build_packed", "dmsa_lidar_slam_tpu_torch/csrc/k1_build.cu",
+            "dmsa_lidar_slam_tpu/ops/fused_residuals.py:875", max(e for _, e, _ in builds), 2e-2,
+            lambda args=args: fr.build_packed(*args), 10, lambda args=args: fr.build_packed_ref(*args), 3,
+            label, 101 * n + 32 * dtab, 45 * n + 200 * builds[-1][2])
+    return torch.cat([b[0] for b in builds], dim=1)
+
+
+def _k2_row(results, calls, tab, dtabs, packed, max_cells, label):
+    """K2 against its plain version, twice for the bits, and timed."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
+
+    p_dim, m = dtabs.shape[0], packed.shape[1]
+    h = fr.gn_system(tab, dtabs, packed, max_cells=max_cells)
+    assert torch.equal(h, fr.gn_system(tab, dtabs, packed, max_cells=max_cells)), "K2: not repeatable"
+    h_r = fr.gn_system_ref(tab, dtabs, packed, include_mean_term=False)
+    torch.cuda.synchronize()
+    # f32 sums over ~1e4-1e5 cells in another order
+    err = float((h - h_r).abs().max()) / float(h_r.abs().max())
+    # operations: per member of a valid cell its cotangent (~40) and the
+    # 7P-wide row contraction (14 P); per valid cell the rank-1 update of
+    # the [P+1, P+1] system (2 (P+1)^2)
+    m_valid = int(((packed[6:12].abs().sum(0) > 0) & (packed[12] > 0)).sum())
+    n_cells = int((packed[15] > 0).sum())
+    _record(results, calls, "gn_system", "dmsa_lidar_slam_tpu_torch/csrc/k2_gn.cu",
+            "dmsa_lidar_slam_tpu/ops/fused_residuals.py:426", err, 1e-3,
+            lambda: fr.gn_system(tab, dtabs, packed, max_cells=max_cells), 5,
+            lambda: fr.gn_system_ref(tab, dtabs, packed, include_mean_term=False), 2,
+            label, 32 * tab.shape[0] * (1 + p_dim) + 64 * m + 4 * (p_dim + 1) ** 2,
+            m_valid * (40 + 14 * p_dim) + 2 * n_cells * (p_dim + 1) ** 2)
+
+
+def _k3_row(results, calls, device, packed, tab, label):
+    """K3 at K = 15 candidates against its plain version, twice for the
+    bits, and timed."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
+
+    m = packed.shape[1]
+    tabs = _cand_tables(tab, device)
+    e = fr.cand_errors(tabs, packed)
+    assert torch.equal(e, fr.cand_errors(tabs, packed)), "K3: not repeatable"
+    e_r = fr.cand_errors_ref(tabs, packed)
+    torch.cuda.synchronize()
+    # candidate errors are compared with each other: f32-class sums,
+    # relative to each candidate's value
+    err = float(((e - e_r).abs() / e_r.abs().clamp(min=1e-30)).max())
+    # operations: per candidate, ~50 per member of a valid cell (transform,
+    # offset, packed quadratic form, run sums), ~20 per cell
+    m_valid = int(((packed[6:12].abs().sum(0) > 0) & (packed[12] > 0)).sum())
+    n_cells = int((packed[15] > 0).sum())
+    _record(results, calls, "cand_errors", "dmsa_lidar_slam_tpu_torch/csrc/k3_cand.cu",
+            "dmsa_lidar_slam_tpu/ops/fused_residuals.py:313", err, 2e-4,
+            lambda: fr.cand_errors(tabs, packed), 10, lambda: fr.cand_errors_ref(tabs, packed), 3,
+            label, 15 * 32 * tab.shape[0] + 64 * m + 60, 15 * (50 * m_valid + 20 * n_cells))
+
+
 def kernel_checks(device):
     import numpy as np
     import torch
@@ -275,24 +461,8 @@ def kernel_checks(device):
     rng = np.random.default_rng(0)
     results, calls = [], []
 
-    def record(name, src, replaces, err, tol, fn, reps, plain_fn, plain_reps, shape, n_bytes, n_ops):
-        ok = bool(err <= tol)
-        ms = _timed(fn, reps)
-        plain_ms = _timed(plain_fn, plain_reps)
-        ms_steady = _timed(fn, STEADY_REPS, warmup=STEADY_REPS)
-        host_ms = _host_ms(fn, STEADY_REPS)
-        bound_ms, bound_by = _bound(n_bytes, n_ops)
-        print(f"  {name:23s} {shape:34s} max_abs_err={err:.3e} tol={tol:.3e} "
-              f"kernel={ms:.4f} ms steady={ms_steady:.4f} ms host={host_ms:.4f} ms plain={plain_ms:.4f} ms "
-              f"bound={bound_ms:.4f} ms ({bound_by}) {'ok' if ok else 'FAIL'}", flush=True)
-        assert ok, f"{name} at {shape}: error {err} above tolerance {tol}"
-        # library_ms: no single PyTorch call computes any of these functions
-        # (K4's nearest distance is cdist then amin, two calls; see PERF.md)
-        results.append(dict(name=f"{name} {shape}", route="cuda", source=src, replaces=replaces,
-                            max_abs_err=float(err), tolerance=float(tol), ms=float(ms), ms_steady=float(ms_steady),
-                            host_ms=float(host_ms), plain_ms=float(plain_ms), bound_ms=float(bound_ms),
-                            bound_by=bound_by, library_ms=None, bytes=int(n_bytes), operations=int(n_ops)))
-        calls.append(fn)
+    def record(*args):
+        _record(results, calls, *args)
 
     packs = {}
     lib, stream = cuda_lib.library(), cuda_lib.stream_ptr(device)
@@ -305,7 +475,7 @@ def kernel_checks(device):
     for n, dtab, masked, prng in ((28672, 502, 0.05, rng), (409600, 101, 0.05, rng),
                                   (28672, 502, WINDOW_MASKED_SHARE, np.random.default_rng(1))):
         pts, mask, rings, xs, ti, tab = _scene_problem(prng, n, dtab, device, masked)
-        builds = []
+        arg_sets = []
         for factor in (1.0, 2.5):
             # the keys with the grid as a host number and as the optimizer
             # passes it (factor times an f32 scalar on the card); the cells
@@ -315,86 +485,23 @@ def kernel_checks(device):
                 key = fr._k1_keys(pts, mask, gk, None, lib, stream)
                 want = voxel.combined_key(*voxel.voxel_keys(pts, mask, gk))
                 assert torch.equal(key, want), f"K1: keys differ, grid {gk!r}"
-            args = (pts, mask, rings, xs, ti, g, 10, tab)
-            pk, nv, nr = fr.build_packed(*args)
-            again = fr.build_packed(*args)
-            assert all(torch.equal(a, b) for a, b in zip((pk, nv, nr), again)), "K1: not repeatable"
-            pk_r, nv_r, nr_r = fr.build_packed_ref(*args)
-            torch.cuda.synchronize()
-            assert int(nv) == int(nv_r) and int(nr) == int(nr_r), (int(nv), int(nv_r), int(nr), int(nr_r))
-            exact = torch.equal(pk[12:15], pk_r[12:15]) and torch.equal(pk[0:3], pk_r[0:3])
-            assert exact, "K1: xs / w / tidx / run-start rows must match exactly"
-            sel = pk_r[6:12].abs().sum(0) > 0
-            assert float((pk[15] - pk_r[15]).abs().max()) <= 1e-6, "K1: 1/count rows differ"
-            mu_err = float((pk[3:6][:, sel] - pk_r[3:6][:, sel]).abs().max())
-            assert mu_err <= 2e-4, f"K1: cell means differ by {mu_err} m"
-            # lamw6: f32 moments in another order (about the run's first
-            # member vs two-pass), amplified by the eigenvalue floor; relative
-            # to the lamw6 scale, as the reference's kernel test
-            scale = float(pk_r[6:12][:, sel].abs().max())
-            err = float((pk[6:12][:, sel] - pk_r[6:12][:, sel]).abs().max()) / scale
-            builds.append((pk, err))
-        # bytes: points, mask, rings, local points, int64 table index and the
-        # table in; the [16, n] packed rows out.  operations: ~45 per point
-        # (transform, moments), ~200 per occupied cell (floored inverse)
-        n_raw = int(fr.build_packed_ref(*args)[2])
-        record("build_packed", "dmsa_lidar_slam_tpu_torch/csrc/k1_build.cu",
-               "dmsa_lidar_slam_tpu/ops/fused_residuals.py:875", max(e for _, e in builds), 2e-2,
-               lambda args=args: fr.build_packed(*args), 10, lambda args=args: fr.build_packed_ref(*args), 3,
-               f"n={n}" + ("" if masked == 0.05 else f" masked={masked}"), 101 * n + 32 * dtab, 45 * n + 200 * n_raw)
-        packs[n, masked] = (torch.cat([b[0] for b in builds], dim=1), tab)
-
-    def k3_row(packed, tab, label=""):
-        """K3 at K = 15 candidates against its plain version, twice for the
-        bits, and timed."""
-        m = packed.shape[1]
-        tabs = _cand_tables(tab, device)
-        e = fr.cand_errors(tabs, packed)
-        assert torch.equal(e, fr.cand_errors(tabs, packed)), "K3: not repeatable"
-        e_r = fr.cand_errors_ref(tabs, packed)
-        torch.cuda.synchronize()
-        # candidate errors are compared with each other: f32-class sums,
-        # relative to each candidate's value
-        err = float(((e - e_r).abs() / e_r.abs().clamp(min=1e-30)).max())
-        # operations: per candidate, ~50 per member of a valid cell
-        # (transform, offset, packed quadratic form, run sums), ~20 per cell
-        m_valid = int(((packed[6:12].abs().sum(0) > 0) & (packed[12] > 0)).sum())
-        n_cells = int((packed[15] > 0).sum())
-        record("cand_errors", "dmsa_lidar_slam_tpu_torch/csrc/k3_cand.cu",
-               "dmsa_lidar_slam_tpu/ops/fused_residuals.py:313", err, 2e-4,
-               lambda tabs=tabs, packed=packed: fr.cand_errors(tabs, packed), 10,
-               lambda tabs=tabs, packed=packed: fr.cand_errors_ref(tabs, packed), 3,
-               f"K=15 Dtab={tab.shape[0]} M={m}{label}", 15 * 32 * tab.shape[0] + 64 * m + 60,
-               15 * (50 * m_valid + 20 * n_cells))
+            arg_sets.append((pts, mask, rings, xs, ti, g, 10, tab))
+        packed = _k1_row(results, calls, arg_sets, f"n={n}" + ("" if masked == 0.05 else f" masked={masked}"))
+        packs[n, masked] = (packed, tab)
 
     # K2 at the window (P=30, M=57,344) and the 100-keyframe submap
     # (P=594, M=819,200); K3 at K=15 candidates on both
     for n, p_dim in ((28672, 30), (409600, 594)):
         packed, tab = packs[n, 0.05]
-        m = packed.shape[1]
         dtabs = 0.1 * torch.randn(p_dim, tab.shape[0], 8, device=device,
                                   generator=torch.Generator(device=device).manual_seed(1))
         dtabs[:, -1, :] = 0.0
-        max_cells = m // 10 + 2
-        h = fr.gn_system(tab, dtabs, packed, max_cells=max_cells)
-        assert torch.equal(h, fr.gn_system(tab, dtabs, packed, max_cells=max_cells)), "K2: not repeatable"
-        h_r = fr.gn_system_ref(tab, dtabs, packed, include_mean_term=False)
-        torch.cuda.synchronize()
-        # f32 sums over ~1e4-1e5 cells in another order
-        err = float((h - h_r).abs().max()) / float(h_r.abs().max())
-        # operations: per member of a valid cell its cotangent (~40) and the
-        # 7P-wide row contraction (14 P); per valid cell the rank-1 update
-        # of the [P+1, P+1] system (2 (P+1)^2)
-        m_valid = int(((packed[6:12].abs().sum(0) > 0) & (packed[12] > 0)).sum())
-        n_cells = int((packed[15] > 0).sum())
-        record("gn_system", "dmsa_lidar_slam_tpu_torch/csrc/k2_gn.cu",
-               "dmsa_lidar_slam_tpu/ops/fused_residuals.py:426", err, 1e-3,
-               lambda tab=tab, dtabs=dtabs, packed=packed, mc=max_cells: fr.gn_system(tab, dtabs, packed, max_cells=mc),
-               5, lambda tab=tab, dtabs=dtabs, packed=packed: fr.gn_system_ref(tab, dtabs, packed, include_mean_term=False),
-               2, f"P={p_dim} M={m}", 32 * tab.shape[0] * (1 + p_dim) + 64 * m + 4 * (p_dim + 1) ** 2,
-               m_valid * (40 + 14 * p_dim) + 2 * n_cells * (p_dim + 1) ** 2)
-        k3_row(packed, tab)
-    k3_row(*packs[28672, WINDOW_MASKED_SHARE], f" masked={WINDOW_MASKED_SHARE}")
+        m = packed.shape[1]
+        _k2_row(results, calls, tab, dtabs, packed, m // 10 + 2, f"P={p_dim} M={m}")
+        _k3_row(results, calls, device, packed, tab, f"K=15 Dtab={tab.shape[0]} M={m}")
+    packed, tab = packs[28672, WINDOW_MASKED_SHARE]
+    _k3_row(results, calls, device, packed, tab,
+            f"K=15 Dtab={tab.shape[0]} M={packed.shape[1]} masked={WINDOW_MASKED_SHARE}")
 
     # K4 at the two static-point queries of a bench scan
     for n_ref, n_q in ((20480, 12288), (8192, 20480)):
@@ -852,6 +959,402 @@ def native_phase():
     assert equal, "native decode differs from the numpy decoder"
 
 
+# --------------------------------------------------------------------------
+# phase (g): the distributed keyframe adjustment
+# --------------------------------------------------------------------------
+
+
+def _counted(fn):
+    """(fn(), wall s, launches): the launch counters zeroed just before and
+    read just after, the card synchronized on both sides."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
+
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(cuda_lib.LAUNCHES)
+
+
+def dist_problem(shape, device):
+    """(data, params0, params_true) of the synthetic keyframe map at
+    `shape` (keyframes, points per keyframe) on the card."""
+    import torch
+
+    from tests.torch_dist import as_port, keyframe_problem
+
+    data, p0, pt = keyframe_problem(DIST_SEED, s=shape[0], ppk=shape[1], with_normals=True, extras=True,
+                                    shared=False, pose_noise=DIST_POSE_NOISE)
+    return as_port(data, device), torch.as_tensor(p0, device=device), torch.as_tensor(pt, device=device)
+
+
+def kf_positions(data, params, shape):
+    from dmsa_lidar_slam_tpu_torch.map import keyframes as kfm
+
+    return kfm.global_chain(params, data, kfm.MapShapes(*shape))[1].transl.cpu().numpy()
+
+
+def position_rms(a, b):
+    import numpy as np
+
+    return float(np.sqrt(np.mean(np.sum((a - b) ** 2, axis=1))))
+
+
+def position_max(a, b):
+    import numpy as np
+
+    return float(np.max(np.linalg.norm(a - b, axis=1)))
+
+
+def spatial_run(mesh, data, params0, shape, num_iter=DIST_OPT["num_iter"]):
+    """parallel.spatial over `mesh`: (params, final_error, cells, overflow)."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.map import keyframes as kfm
+    from dmsa_lidar_slam_tpu_torch.parallel import keyframe_dist, spatial
+
+    sopt = spatial.make_spatial_dist_optimize(mesh, kfm.MapShapes(*shape), use_split=True,
+                                              **dict(DIST_OPT, num_iter=num_iter))
+    fp, fm, frs, aux = keyframe_dist.flatten_problem(data)
+    return sopt(params0, fp, fm, frs, aux, torch.tensor(DIST_GRIDS, device=fp.device),
+                flat_normals=data.local_normals.reshape(-1, 3))
+
+
+def hash_run(mesh, data, params0, shape):
+    """parallel.keyframe_dist (the hash backend) over `mesh`: (params,
+    iterations, final_error, cells)."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.map import keyframes as kfm
+    from dmsa_lidar_slam_tpu_torch.parallel import keyframe_dist
+
+    f = keyframe_dist.make_keyframe_dist_optimize(mesh, kfm.MapShapes(*shape), **HASH_OPT)
+    fp, fm, frs, aux = keyframe_dist.flatten_problem(data)
+    return f(params0, fp, fm, frs, aux, torch.tensor(DIST_GRIDS, device=fp.device))
+
+
+def _k123_launched(launches, where):
+    for k in ("build_packed", "gn_system", "cand_errors"):
+        assert launches[k] > 0, f"kernel {k} never launched {where}"
+
+
+def dist_settings(num_iter):
+    """The port's OptimSettings of DIST_OPT with num_iter iterations."""
+    from dmsa_lidar_slam_tpu_torch.dmsa import optimizer as opt
+
+    return opt.OptimSettings(num_iter=num_iter, min_num_points_per_set=DIST_OPT["min_points"],
+                             step_length_optim=DIST_OPT["step_length"], max_step=DIST_OPT["max_step"],
+                             epsilon=DIST_OPT["epsilon"])
+
+
+def single_card_phase(device):
+    """(g1) The single-card reference: the optimizer's tabular path (K1-K3)
+    at the 100-keyframe shape, P = 594 (K2's dense-J path), with the
+    pipelines' settings: the shipped call, counters zeroed around it, then
+    its iterations again one call each, which must land on the shipped
+    call's params bit for bit.  Returns (params after each iteration, the
+    start first; launches)."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.dmsa import optimizer as opt
+    from dmsa_lidar_slam_tpu_torch.map import keyframes as kfm
+
+    data, p0, pt = dist_problem(DIST_SHAPE, device)
+    shapes = kfm.MapShapes(*DIST_SHAPE)
+    fwd = kfm.make_forward(shapes, True, True, True)
+    tabular = kfm.make_tabular(shapes, True, True)
+    res, wall, launches = _counted(
+        lambda: opt.optimize(fwd, p0, data, dist_settings(DIST_OPT["num_iter"]), 0.25, tabular_fn=tabular))
+    curve, cells = [p0], []
+    for _ in range(int(res.num_iters)):
+        r = opt.optimize(fwd, curve[-1], data, dist_settings(1), 0.25, tabular_fn=tabular)
+        curve.append(r.params)
+        cells.append(int(r.num_gaussians))
+    truth = kf_positions(data, pt, DIST_SHAPE)
+    errs = [position_rms(kf_positions(data, p, DIST_SHAPE), truth) for p in curve]
+    out = dict(keyframes=DIST_SHAPE[0], points=DIST_SHAPE[0] * DIST_SHAPE[1], params=p0.shape[0],
+               iterations=int(res.num_iters), stop_reason=int(res.stop_reason), gaussians=int(res.num_gaussians),
+               kf_pos_rms_m=errs, valid_cells=cells, descent_bound=[G1_DESCENT_ITERS, G1_DESCENT_GAIN],
+               shipped_bound=G1_SHIPPED_GAIN, wall_s=wall, launches=launches)
+    print("  (g1) single card " + json.dumps(out), flush=True)
+    assert bool(res.params.isfinite().all()), "non-finite parameters"
+    assert torch.equal(curve[-1], res.params), "(g1) one iteration per call left the shipped call's path"
+    assert len(errs) > G1_DESCENT_ITERS and errs[G1_DESCENT_ITERS] <= G1_DESCENT_GAIN * errs[0], \
+        f"(g1) keyframe position RMS {errs[0]} -> {errs[G1_DESCENT_ITERS:G1_DESCENT_ITERS + 1]}"
+    assert errs[-1] <= G1_SHIPPED_GAIN * errs[0], f"(g1) keyframe position RMS {errs[0]} -> {errs[-1]}"
+    _k123_launched(launches, "in (g1)")
+    return curve, launches
+
+
+def dist_kernel_rows(device, results, calls):
+    """K1-K3 at the per-rank shapes of the spatial backend at the
+    100-keyframe shape, against their plain versions: the rows that rank 0
+    receives at 2 ranks (2 x 204,800) and at 1 rank (819,200), both grids."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.core import rotations as rot
+    from dmsa_lidar_slam_tpu_torch.map import keyframes as kfm
+    from dmsa_lidar_slam_tpu_torch.parallel import keyframe_dist, spatial
+    from dmsa_lidar_slam_tpu_torch.parallel import mesh as pmesh
+
+    data, p0, _ = dist_problem(DIST_SHAPE, device)
+    s, ppk = DIST_SHAPE
+    n = s * ppk
+    tabular = kfm.make_tabular(kfm.MapShapes(s, ppk), True, True)
+    fp, fm, frs, aux = keyframe_dist.flatten_problem(data)
+    tab, _ = tabular.tables(p0, aux)
+    dtabs = torch.func.jacfwd(lambda p: tabular.tables(p, aux))(p0)[0].permute(2, 0, 1)
+    tidx = torch.arange(s, device=device).repeat_interleave(ppk)
+    split = kfm.normal_split_ids(rot.quat_rotate(tab[:, 0:4][tidx], data.local_normals.reshape(-1, 3)))
+    payload = torch.cat([fp, tidx.float()[:, None], frs.float()[:, None], split.float()[:, None]], dim=1)
+    world = spatial.world_points(tab, fp, tidx)
+    for n_dev in (2, 1):
+        cap = spatial.bucket_cap(n, n_dev)
+        arg_sets = []
+        for grid in DIST_GRIDS:
+            g = torch.tensor(grid, device=device)
+            recv, rmask = [], []
+            for sender in range(n_dev):  # each sender's bucket for rank 0, as all_to_all delivers it
+                sl = slice(sender * n // n_dev, (sender + 1) * n // n_dev)
+                owner = spatial.owner_of_voxels(world[sl], fm[sl], g, n_dev)
+                r, m, _ = spatial.shuffle_to_owners(payload[sl], owner, n_dev, cap, pmesh.ONE_RANK)
+                recv.append(r[:cap])
+                rmask.append(m[:cap])
+            recv, rmask = torch.cat(recv), torch.cat(rmask)
+            r_xs, r_tidx = recv[:, 0:3].contiguous(), recv[:, 3].long()
+            arg_sets.append((spatial.world_points(tab, r_xs, r_tidx), rmask, recv[:, 4].int(), r_xs, r_tidx, g,
+                             DIST_OPT["min_points"], tab, recv[:, 5].int()))
+        rows = arg_sets[0][0].shape[0]
+        label = f"rank 0 of {n_dev}, {int(arg_sets[0][1].sum())} of {rows} rows valid"
+        packed = _k1_row(results, calls, arg_sets, f"n={rows} distributed, {label}")
+        m = packed.shape[1]
+        _k2_row(results, calls, tab, dtabs, packed, m // DIST_OPT["min_points"] + 2,
+                f"P={dtabs.shape[0]} M={m} distributed, rank 0 of {n_dev}")
+        _k3_row(results, calls, device, packed, tab, f"K=15 Dtab={tab.shape[0]} M={m} distributed, rank 0 of {n_dev}")
+
+
+def one_rank_phase(device, g1_params):
+    """(g2) parallel.spatial at world size 1 over NCCL against (g1)'s
+    params after the shipped call, and (g4, second half) the hash backend
+    at world size 1 at the 100-keyframe shape.  Returns (g2)'s launches."""
+    import torch
+    import torch.distributed as dist
+
+    from dmsa_lidar_slam_tpu_torch.parallel import launch, spatial
+    from dmsa_lidar_slam_tpu_torch.parallel import mesh as pmesh
+
+    n_points = DIST_SHAPE[0] * DIST_SHAPE[1]
+    store = os.path.join(_build_dir("chip_smoke_nccl"), "store")
+    launch.initialize_distributed(backend="nccl", init_method=f"file://{store}", world_size=1, rank=0, device=device)
+    try:
+        mesh = pmesh.make_mesh()
+        assert mesh.backend == "nccl" and mesh.size == 1 and mesh.group is not None, mesh
+        data, p0, pt = dist_problem(DIST_SHAPE, device)
+        (params, err, cells, ov), wall, launches = _counted(lambda: spatial_run(mesh, data, p0, DIST_SHAPE))
+        diff = float((params - g1_params).abs().max())
+        gap = position_max(kf_positions(data, params, DIST_SHAPE), kf_positions(data, g1_params, DIST_SHAPE))
+        out = dict(backend=mesh.backend, ranks=mesh.size, cap=spatial.bucket_cap(n_points, 1), overflow=int(ov),
+                   cells=int(cells), final_error=float(err), params_max_diff_vs_g1=diff, tolerance=G2_PARAM_TOL,
+                   kf_pos_max_diff_vs_g1_m=gap, wall_s=wall, launches=launches)
+        print("  (g2) spatial, 1 rank " + json.dumps(out), flush=True)
+        assert int(ov) == 0, "(g2) bucket overflow"
+        assert diff <= G2_PARAM_TOL, f"(g2) parameters {diff} from (g1)'s"
+        _k123_launched(launches, "in (g2)")
+
+        (ph, iters, eh, ch), wall, hl = _counted(lambda: hash_run(mesh, data, p0, DIST_SHAPE))
+        e0, e1 = float((p0 - pt).norm()), float((ph - pt).norm())
+        out = dict(backend=mesh.backend, ranks=mesh.size, table_size=HASH_OPT["table_size"], iterations=int(iters),
+                   cells=int(ch), param_err_start=e0, param_err=e1, bound=HASH_GAIN,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, wall_s=wall)
+        print("  (g4) hash backend, 1 rank, 100 keyframes " + json.dumps(out), flush=True)
+        assert e1 < HASH_GAIN * e0, f"(g4) parameter error {e0} -> {e1}"
+        assert not any(hl.values()), f"the hash backend launched a kernel: {hl}"
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def _rank_main(rank, world, out_dir, device, step_from):
+    """One of the 2 ranks of (g3)-(g5), sharing the card `device` over
+    gloo; step_from: (g1)'s params (on the CPU) to take one (g3) iteration
+    from."""
+    import torch
+    import torch.distributed as dist
+
+    from dmsa_lidar_slam_tpu_torch.io.synthetic import ate_rmse, bench_config
+    from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
+    from dmsa_lidar_slam_tpu_torch.parallel import launch
+    from dmsa_lidar_slam_tpu_torch.parallel import mesh as pmesh
+    from dmsa_lidar_slam_tpu_torch.pipeline.fused import FusedDmsaSlam
+
+    device = launch.initialize_distributed(backend="gloo", init_method=f"file://{out_dir}/store", world_size=world,
+                                           rank=rank, device=device)
+    try:
+        cuda_lib.library()
+        mesh = pmesh.make_mesh()
+        out = dict(mesh=(mesh.size, mesh.rank, mesh.backend))
+        data, p0, pt = dist_problem(DIST_SHAPE, device)
+        (params, err, cells, ov), wall, launches = _counted(lambda: spatial_run(mesh, data, p0, DIST_SHAPE))
+        out["g3"] = dict(params=params.cpu(), overflow=int(ov), cells=int(cells), final_error=float(err),
+                         wall_s=wall, launches=launches)
+        steps = [spatial_run(mesh, data, p.to(device), DIST_SHAPE, num_iter=1) for p in step_from]
+        out["g3"]["steps"] = [r[0].cpu() for r in steps]
+        out["g3"]["step_overflow"] = [int(r[3]) for r in steps]
+        del data, p0, pt
+        data, p0, pt = dist_problem(DIST_HASH_SHAPE, device)
+        (ph, iters, eh, ch), wall, hl = _counted(lambda: hash_run(mesh, data, p0, DIST_HASH_SHAPE))
+        out["g4"] = dict(params=ph.cpu(), iterations=int(iters), cells=int(ch), param_err_start=float((p0 - pt).norm()),
+                         param_err=float((ph - pt).norm()), wall_s=wall, launches=hl)
+        del data, p0, pt
+        seq, scans = bench_data(DIST_FUSED_SCANS)
+        slam = FusedDmsaSlam(bench_config(distributed_keyframe_opt=True), flush_every=20, device=device)
+        _, wall, launches = _counted(lambda: feed(slam, scans))
+        st, tr, _ = slam.all_poses()
+        _, transl, orient = slam.keyframe_poses()
+        out["g5"] = dict(mesh=slam.mesh.size, kf_count=slam.kf_count, transl=transl, orient=orient,
+                         ate_m=ate_rmse(st, tr, seq), max_submap_span=slam.max_submap_span,
+                         shuffle_overflow=slam.shuffle_overflow, wall_ms_per_scan=1000.0 * wall / len(scans),
+                         launches=launches)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def two_rank_phase(device, g1_curve, ckpt_path):
+    """(g3) parallel.spatial on 2 ranks sharing the card over gloo: the
+    shipped call, and one iteration from (g1)'s params after each count of
+    DIST_STEP_FROM against (g1)'s next ones; (g4) the hash backend on them
+    at bench_config's 16-keyframe submap; (g5) FusedDmsaSlam with
+    distributed_keyframe_opt on them over the first DIST_FUSED_SCANS bench
+    scans, against the one-rank run's checkpoint at that scan and against
+    a one-rank run with the submap step off, which this process runs while
+    the ranks do.  Returns the ranks' summed launches of (g3) and (g5)."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from dmsa_lidar_slam_tpu_torch.io.synthetic import bench_config
+    from dmsa_lidar_slam_tpu_torch.parallel import spatial
+    from dmsa_lidar_slam_tpu_torch.pipeline.checkpoint import load_fused_checkpoint
+    from dmsa_lidar_slam_tpu_torch.pipeline.fused import FusedDmsaSlam
+
+    out_dir = _build_dir("chip_smoke_ranks")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    step_from = [g1_curve[k].cpu() for k in DIST_STEP_FROM]
+    ctx = mp.start_processes(_rank_main, args=(2, out_dir, str(device), step_from), nprocs=2, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + DIST_RANK_TIMEOUT_S
+    try:
+        seq, scans = bench_data(DIST_FUSED_SCANS)
+        off = FusedDmsaSlam(bench_config(optimize_sliding_window_keyframes=False), flush_every=20, device=device)
+        feed(off, scans)
+        _, off_t, _ = off.keyframe_poses()
+        del off
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            assert time.monotonic() < deadline, "the 2 ranks did not finish in time"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    print(f"  2 ranks on one card over gloo: {time.perf_counter() - t0:.1f} s, start-up included", flush=True)
+    assert [r["mesh"] for r in ranks] == [(2, 0, "gloo"), (2, 1, "gloo")], [r["mesh"] for r in ranks]
+
+    data, p0, pt = dist_problem(DIST_SHAPE, device)
+
+    def positions(params):
+        return kf_positions(data, params.to(device), DIST_SHAPE)
+
+    g3 = [r["g3"] for r in ranks]
+    same = all(torch.equal(g3[0]["params"], g["params"]) for g in g3)
+    same = same and all(torch.equal(a, b) for g in g3 for a, b in zip(g3[0]["steps"], g["steps"]))
+    truth = positions(pt)
+    step_gaps = [position_max(positions(p), positions(g1_curve[k + 1]))
+                 for k, p in zip(DIST_STEP_FROM, g3[0]["steps"])]
+    out = dict(backend="gloo", ranks=2, cap=spatial.bucket_cap(DIST_SHAPE[0] * DIST_SHAPE[1], 2),
+               overflow=[g["overflow"] for g in g3], step_overflow=[g["step_overflow"] for g in g3],
+               cells=g3[0]["cells"], final_error=g3[0]["final_error"], ranks_bit_identical=same,
+               kf_pos_rms_start_m=position_rms(positions(p0), truth),
+               kf_pos_rms_m=position_rms(positions(g3[0]["params"]), truth),
+               kf_pos_max_diff_vs_g1_m=position_max(positions(g3[0]["params"]), positions(g1_curve[-1])),
+               one_step_from=list(DIST_STEP_FROM), one_step_kf_pos_max_diff_vs_g1_m=step_gaps,
+               tolerance_m=DIST_STEP_TOL_M, wall_s=[g["wall_s"] for g in g3],
+               launches=[g["launches"] for g in g3])
+    print("  (g3) spatial, 2 ranks " + json.dumps(out), flush=True)
+    assert same, "(g3) the ranks' parameters differ"
+    assert all(g["overflow"] == 0 and not any(g["step_overflow"]) for g in g3), "(g3) bucket overflow"
+    assert max(step_gaps) <= DIST_STEP_TOL_M, f"(g3) one iteration {step_gaps} m from (g1)'s"
+    for g in g3:
+        _k123_launched(g["launches"], "on a rank in (g3)")
+
+    g4 = [r["g4"] for r in ranks]
+    same = all(torch.equal(g4[0]["params"], g["params"]) for g in g4)
+    out = {k: v for k, v in g4[0].items() if k != "params"}
+    out.update(backend="gloo", ranks=2, table_size=HASH_OPT["table_size"], ranks_bit_identical=same, bound=HASH_GAIN)
+    print("  (g4) hash backend, 2 ranks, 16 keyframes " + json.dumps(out), flush=True)
+    assert same, "(g4) the ranks' parameters differ"
+    assert g4[0]["param_err"] < HASH_GAIN * g4[0]["param_err_start"], "(g4) the error did not fall"
+    assert not any(v for g in g4 for v in g["launches"].values()), "the hash backend launched a kernel"
+
+    g5 = [r["g5"] for r in ranks]
+    one = load_fused_checkpoint(FusedDmsaSlam(bench_config(), flush_every=20, device=device), ckpt_path)
+    _, one_t, _ = one.keyframe_poses()
+    same = all(np.array_equal(g5[0][k], g[k]) for g in g5 for k in ("transl", "orient"))
+
+    def kf_gap(a, b):
+        return position_max(a, b) if len(a) == len(b) else float("inf")
+
+    gap, gap_off = kf_gap(g5[0]["transl"], one_t), kf_gap(off_t, one_t)
+    out = {k: v for k, v in g5[0].items() if k not in ("transl", "orient")}
+    out.update(scans=DIST_FUSED_SCANS, one_rank_kf_count=len(one_t), ranks_bit_identical=same,
+               kf_pos_max_diff_vs_one_rank_m=gap, tolerance_m=FUSED_DIST_TOL_M,
+               submap_off_kf_pos_max_diff_vs_one_rank_m=gap_off, launches=[g["launches"] for g in g5])
+    print("  (g5) fused pipeline, 2 ranks " + json.dumps(out), flush=True)
+    assert all(g["mesh"] == 2 for g in g5), "(g5) the submap was not distributed"
+    assert same, "(g5) the ranks' keyframes differ"
+    assert g5[0]["ate_m"] <= ATE_GATE_M, f"(g5) ATE {g5[0]['ate_m']} above {ATE_GATE_M}"
+    assert g5[0]["max_submap_span"] > 0 and all(g["shuffle_overflow"] == 0 for g in g5), g5[0]
+    assert gap <= FUSED_DIST_TOL_M, f"(g5) keyframe positions {gap} m from the one-rank run's"
+    assert gap_off > FUSED_DIST_TOL_M, f"(g5) the submap step moves the keyframes only {gap_off} m"
+    for g in g5:
+        _k123_launched(g["launches"], "on a rank in (g5)")
+    total = {}
+    for g in g3 + g5:
+        for k, v in g["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def dist_phase(device, ckpt_path, results, calls):
+    """Phase (g).  Returns the launches of (g1) and of the distributed runs
+    ((g2), and (g3) and (g5) on both ranks)."""
+    def sub(title, fn, *args):
+        print(title, flush=True)
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"  ({time.perf_counter() - t:.1f} s)", flush=True)
+        return out
+
+    from dmsa_lidar_slam_tpu_torch.config import Config
+
+    c = Config()
+    assert (DIST_OPT["num_iter"], DIST_OPT["min_points"], DIST_OPT["step_length"], DIST_OPT["epsilon"]) == (
+        c.num_iter_keyframe_optim, c.min_num_points_gauss_key, c.alpha_keyframe_optim, c.epsilon_keyframe_opt)
+    g1_curve, g1_launches = sub("(g1) the single-card optimizer at 100 keyframes x 4,096 points:",
+                                single_card_phase, device)
+    sub("(g) K1-K3 at the spatial backend's per-rank shapes:", dist_kernel_rows, device, results, calls)
+    dist_launches = sub("(g2, g4) parallel.spatial and the hash backend at world size 1 over NCCL:",
+                        one_rank_phase, device, g1_curve[-1])
+    two = sub("(g3, g4, g5) 2 ranks on the one card over gloo:", two_rank_phase, device, g1_curve, ckpt_path)
+    for k, v in two.items():
+        dist_launches[k] += v
+    return g1_launches, dist_launches
+
+
 def main():
     import torch
 
@@ -900,6 +1403,8 @@ def main():
                                   host_resume, device, data)
     phase("(e) two-scan alignment, autodiff optimizer path:", two_scan_phase, device)
     phase("(f) native PointCloud2 decode:", native_phase)
+    paths["single_card_100kf"], paths["distributed"] = phase(
+        "(g) the distributed keyframe adjustment (parallel/*):", dist_phase, device, ckpt, results, calls)
     print("CUDA kernels per call (torch.profiler):", flush=True)
     for r, fn in zip(results, calls):
         device_ms, kernels = _profile(fn)

@@ -1,17 +1,37 @@
 """State conversion between the JAX reference and the port.
 
-Both packages' FusedState / DeviceMapState carry the same field names,
-shapes and dtypes, so a reference state given as numpy arrays converts leaf
-by leaf, and the fused checkpoint stores the leaves in the reference's
-flatten order (state_leaves).  Config is the same dataclass in both packages.
+Both packages' FusedState / DeviceMapState, KeyframeMapData and KfAux
+carry the same field names, shapes and dtypes, so a reference value given
+as numpy arrays converts leaf by leaf, and the fused checkpoint stores the
+leaves in the reference's flatten order (state_leaves).  Config is the same
+dataclass in both packages.
 """
 
 import numpy as np
 import torch
 
 from dmsa_lidar_slam_tpu_torch.map.device_map import DeviceMapState
+from dmsa_lidar_slam_tpu_torch.map.keyframes import KeyframeMapData
+from dmsa_lidar_slam_tpu_torch.parallel.keyframe_dist import KfAux
 from dmsa_lidar_slam_tpu_torch.pipeline.fused import FusedState
 from dmsa_lidar_slam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
+
+
+def _named_from_numpy(cls, value, device):
+    device = resolve(device)
+    return cls(**{f: torch.as_tensor(np.array(getattr(value, f)), device=device) for f in cls._fields})
+
+
+def map_data_from_numpy(data, device=DEFAULT_DEVICE) -> KeyframeMapData:
+    """A KeyframeMapData whose fields are numpy arrays (the reference's,
+    through np.asarray) -> the port's on `device` (the card unless "cpu")."""
+    return _named_from_numpy(KeyframeMapData, data, device)
+
+
+def kf_aux_from_numpy(aux, device=DEFAULT_DEVICE) -> KfAux:
+    """A KfAux (parallel.keyframe_dist) whose fields are numpy arrays -> the
+    port's on `device`."""
+    return _named_from_numpy(KfAux, aux, device)
 
 
 def state_from_numpy(state, device=DEFAULT_DEVICE) -> FusedState:

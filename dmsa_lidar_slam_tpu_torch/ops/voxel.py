@@ -117,6 +117,28 @@ def compact(mask, cap: int):
     return idx, out_mask
 
 
+def _mul32(h, c: int):
+    """h * c mod 2^32 for h in [0, 2^32) held in int64, without an int64
+    overflow: c is split into 16-bit halves."""
+    return (h * (c & 0xFFFF) + (((h * (c >> 16)) & 0xFFFF) << 16)) & _U32
+
+
+def murmur_voxel_hash(points, grid_size):
+    """The distributed backends' voxel hash (the reference's parallel/
+    spatial.py and sharded.py): prime-multiple mix of the voxel coordinates
+    floor(p / grid) in wrapping int32, then the murmur3 32-bit finalizer.
+    Returns the uint32 value in int64 [N].  The coordinates are
+    voxel_coords' (the expression K1's keys use), so a point hashes from
+    the voxel its cell is built in."""
+    c = (voxel_coords(points, grid_size) - _COORD_OFFSET).to(torch.int64)
+    h = (c[:, 0] * _P1 + c[:, 1] * _P2 + c[:, 2] * _P3) & _U32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    return h ^ (h >> 16)
+
+
 def count_voxels_ladder(points, mask, grids):
     """Occupied-voxel counts at all ladder grid sizes, with the reference's
     28-bit hash (voxel.py count_voxels_ladder).  Returns [len(grids)] int32.

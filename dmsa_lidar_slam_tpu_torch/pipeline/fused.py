@@ -14,6 +14,13 @@ The step branches on the host where the reference branches under
 lax.cond (buffer full, map initialized, keyframe decision, submap run),
 which reads a device scalar each time; PERF.md counts these syncs.
 
+With Config.distributed_keyframe_opt the submap optimization spreads over
+the ranks of the process group (parallel.spatial, or parallel.keyframe_dist
+with dist_backend="hash"): every rank runs this same pipeline on the same
+scans, and the submap's points are sharded over the ranks among which they
+divide evenly.  The ranks' states stay bit-identical: each host branch
+reads values that are the same on every rank.
+
 Randomness: the reference draws its downsampling priorities from the jax
 PRNG, which torch cannot reproduce.  Here the step takes its three int32
 priority vectors as an explicit input (StepPriorities); the pipeline draws
@@ -37,6 +44,8 @@ from dmsa_lidar_slam_tpu_torch.map import keyframes as kfm
 from dmsa_lidar_slam_tpu_torch.map import normals as nrm
 from dmsa_lidar_slam_tpu_torch.map import static_points as sp
 from dmsa_lidar_slam_tpu_torch.ops import voxel
+from dmsa_lidar_slam_tpu_torch.parallel import keyframe_dist, launch
+from dmsa_lidar_slam_tpu_torch.parallel import mesh as pmesh
 from dmsa_lidar_slam_tpu_torch.pipeline import preprocess as pp
 from dmsa_lidar_slam_tpu_torch.pipeline.metrics import Metrics
 from dmsa_lidar_slam_tpu_torch.pipeline.output import OutputManager
@@ -49,7 +58,8 @@ log = logging.getLogger("dmsa_fused_torch")
 
 # event row (f32): [type, pose(6), related_kf, retired_flag, retired_pose(6),
 # overlap, stop_reason, num_gauss, n_kept, grid, retired_stamp_hi, grav_ok,
-# retired_stamp_lo, shuffle_overflow] -> width 25
+# retired_stamp_lo, shuffle_overflow] -> width 25; shuffle_overflow = points
+# dropped by the spatial backend's all_to_all buckets in the submap
 EV_WIDTH = 25
 EV_NONE, EV_INIT_KF, EV_KEYFRAME, EV_NONKEYFRAME = 0.0, 1.0, 2.0, 3.0
 
@@ -183,8 +193,16 @@ def _roll_push(x, value, full: bool, slot: int):
     return x
 
 
-def make_step(config: Config, shapes: FusedShapes, device):
-    """Build the per-scan step: step(state, pack, aux, prio) -> state."""
+def submap_keyframes(c: Config, shapes: FusedShapes) -> int:
+    """Keyframes of the (capped) submap problem."""
+    cap = c.submap_max_keyframes or shapes.kf_cap
+    return max(2, min(cap, shapes.kf_cap))
+
+
+def make_step(config: Config, shapes: FusedShapes, device, mesh: Optional[pmesh.Mesh] = None):
+    """Build the per-scan step: step(state, pack, aux, prio) -> state.  With
+    a mesh of more than one rank the submap optimization is distributed over
+    it (the ranks outside the mesh take its result)."""
     c = config
     pdt = POSE_DTYPE
     dev = torch.device(device)
@@ -222,11 +240,14 @@ def make_step(config: Config, shapes: FusedShapes, device):
         use_centralization=False,
     )
     use_grav_terms = c.use_gravity_term_in_keyframe_opt and c.use_imu
-    cap = c.submap_max_keyframes or shapes.kf_cap
-    S_sub = max(2, min(cap, shapes.kf_cap))
+    S_sub = submap_keyframes(c, shapes)
     sub_mshapes = kfm.MapShapes(n_keyframes=S_sub, n_pts_per_kf=shapes.kf_pts_cap)
     kf_fwd = kfm.make_forward(sub_mshapes, use_grav_terms, c.use_odometry_term_in_keyframe_opt, True)
     kf_tabular = kfm.make_tabular(sub_mshapes, use_grav_terms, c.use_odometry_term_in_keyframe_opt)
+    dist_submap_opt = None
+    if mesh is not None and mesh.member:
+        dist_submap_opt = keyframe_dist.make_submap_optimizer(c, settings_map, mesh, sub_mshapes, use_grav_terms,
+                                                              c.use_odometry_term_in_keyframe_opt)
 
     def assemble_window(state, sc, acc_dense, gyr_dense):
         rel = state.scan_rel_stamps + sc["scan_t0_rel"][:, None]
@@ -310,14 +331,26 @@ def make_step(config: Config, shapes: FusedShapes, device):
         return state._replace(submap_initialized=torch.ones((), dtype=torch.bool, device=dev)), ev
 
     def do_submap(state, min_related_adj):
+        """The submap optimization; returns (state, the spatial shuffle's
+        overflow as a card scalar, None on one card)."""
         from_id = max(min_related_adj, 0, int(state.kf.count) - S_sub)
         sdata, sparams = dmap.submap_view_capped(
             state.kf, from_id, S_sub, t64(c.balancing_factor_gravity), t64(c.balancing_factor_odometry),
             cov_grav_inv, odom_cov_inv, odom_cov_inv, gravity,
         )
         smin_grid = dmap.min_grid_from(state.kf, from_id)
-        sres = opt.optimize(kf_fwd, sparams, sdata, settings_map, smin_grid, tabular_fn=kf_tabular)
-        return state._replace(kf=dmap.write_back_capped(state.kf, from_id, sres.params))
+        overflow = None
+        if mesh is None:
+            params_new = opt.optimize(kf_fwd, sparams, sdata, settings_map, smin_grid, tabular_fn=kf_tabular).params
+        else:
+            params_new, overflow = sparams, torch.zeros((), dtype=pdt, device=dev)
+            if mesh.member:
+                params_new, ov = dist_submap_opt(sparams, sdata, smin_grid)
+                overflow = ov.to(pdt)
+            # the ranks outside the mesh take its result
+            out = pmesh.broadcast_from_mesh(mesh, torch.cat([params_new, overflow[None]]))
+            params_new, overflow = out[:-1], out[-1]
+        return state._replace(kf=dmap.write_back_capped(state.kf, from_id, params_new)), overflow
 
     def main_window(state, data, params0, sc, prio):
         curr_pos = data.anchor_transl
@@ -371,8 +404,9 @@ def make_step(config: Config, shapes: FusedShapes, device):
             run_submap = c.optimize_sliding_window_keyframes and min_related_adj >= 0 and count >= 3
             span_from = max(max(min_related_adj, 0), count - S_sub)
             submap_span = count - span_from if run_submap else 0
+            shuffle_ov = None
             if run_submap:
-                state = do_submap(state, min_related_adj)
+                state, shuffle_ov = do_submap(state, min_related_adj)
             last = max(count - 1, 0)
             data_o = data_o._replace(anchor_orient=state.kf.orient_w[last], anchor_transl=state.kf.transl_w[last])
             ev[0] = EV_KEYFRAME
@@ -387,6 +421,8 @@ def make_step(config: Config, shapes: FusedShapes, device):
             rs_hi = ret_stamp.to(_F32)
             ev[21] = rs_hi
             ev[23] = (ret_stamp - rs_hi.to(torch.float64)).to(_F32)
+            if shuffle_ov is not None:
+                ev[24] = shuffle_ov.to(_F32)
         else:
             kf_o = state.kf.orient_w[max_overlap_kf]
             kf_t = state.kf.transl_w[max_overlap_kf]
@@ -499,7 +535,15 @@ class FusedDmsaSlam:
         self.device = resolve(device)
         self.shapes = shapes_from_config(self.config, flush_every)
         self.flush_every = min(flush_every, self.shapes.ev_cap)
-        self.step = make_step(self.config, self.shapes, self.device)
+        self.mesh = None
+        if self.config.distributed_keyframe_opt:
+            mesh = launch.global_keyframe_mesh(
+                "data", n_points=submap_keyframes(self.config, self.shapes) * self.shapes.kf_pts_cap)
+            if mesh.size > 1:
+                self.mesh = mesh
+            else:
+                log.warning("distributed_keyframe_opt requested but only 1 usable device")
+        self.step = make_step(self.config, self.shapes, self.device, mesh=self.mesh)
         self.state = empty_state(self.shapes, self.device)
         self.imu_buffer = ImuBuffer()
         self.output = OutputManager()
@@ -518,7 +562,7 @@ class FusedDmsaSlam:
         self._stamp_base: Optional[float] = None
         self._imu_disabled_logged = False
         self.max_submap_span = 0
-        self.shuffle_overflow = 0
+        self.shuffle_overflow = 0  # points the spatial backend's shuffle dropped (ev[24])
 
     # ------------------------------------------------------------------ API
     def process_imu(self, acc, gyr, stamp: float):
@@ -659,6 +703,11 @@ class FusedDmsaSlam:
             if etype in (1, 2):
                 if etype == 2:
                     self.max_submap_span = max(self.max_submap_span, int(round(ev[7])))
+                    ov = int(round(ev[24]))
+                    if ov > 0:  # spatial all_to_all bucket overflow
+                        self.shuffle_overflow += ov
+                        log.warning("spatial shuffle overflow: %d points dropped (total %d)", ov,
+                                    self.shuffle_overflow)
                 if ev[8] > 0.5 and etype == 2:
                     ret_stamp = (self._stamp_base or 0.0) + float(ev[21]) + float(ev[23])
                     self.output.add_static_keyframe_pose(ev[12:15], ev[9:12], ret_stamp)

@@ -9,6 +9,13 @@ CUDA card unless run(..., device="cpu") asks for the CPU.
 Usage:
     python -m dmsa_lidar_slam_tpu_torch.pipeline.runner configs/slam_settings.yaml \\
         configs/newer_college_ouster_64.yaml [--pipeline fused|host] [--max-scans N]
+
+With --distributed-keyframe-opt under torchrun (torchrun --nproc_per_node=N
+-m dmsa_lidar_slam_tpu_torch.pipeline.runner ...), every rank runs this
+same program on the same bag, the keyframe submap optimization spreads over
+the ranks (parallel.launch: NCCL, one card per rank), and only rank 0
+writes Poses.txt, PointCloud.pcd and the viewers: the ranks are replicas.
+Without torchrun's environment the flag runs on this one process.
 """
 
 import argparse
@@ -20,7 +27,9 @@ from dmsa_lidar_slam_tpu_torch.config import load_config
 from dmsa_lidar_slam_tpu_torch.io import pointcloud2 as pc2
 from dmsa_lidar_slam_tpu_torch.io import rosbag
 from dmsa_lidar_slam_tpu_torch.io.pcd import save_pcd
-from dmsa_lidar_slam_tpu_torch.pipeline.slam import DISTRIBUTED_NOT_PORTED, DmsaSlam
+from dmsa_lidar_slam_tpu_torch.parallel import launch
+from dmsa_lidar_slam_tpu_torch.parallel import mesh as pmesh
+from dmsa_lidar_slam_tpu_torch.pipeline.slam import DmsaSlam
 from dmsa_lidar_slam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
 
 log = logging.getLogger("dmsa_runner_torch")
@@ -66,15 +75,16 @@ def run(
     device=DEFAULT_DEVICE,
 ):
     cfg = load_config(*config_paths, overrides=overrides)
-    if cfg.distributed_keyframe_opt:
-        raise NotImplementedError(DISTRIBUTED_NOT_PORTED)
     device = resolve(device)
+    if cfg.distributed_keyframe_opt:
+        device = launch.initialize_distributed(device=device)
+    writer = pmesh.world_rank() == 0  # the ranks are replicas: one writes
     if result_dir:
         cfg.result_dir = result_dir
     if cfg.live_view and not viz_every:
         viz_every = CYCLIC_SAVE_EVERY
     live = None
-    if live_port is not None:
+    if live_port is not None and writer:
         from dmsa_lidar_slam_tpu_torch.pipeline.live_view import LiveViewServer
 
         live = LiveViewServer(port=live_port, host=live_host).start()
@@ -94,9 +104,9 @@ def run(
         log.info("capturing a torch.profiler trace -> %s", profile_dir)
     try:
         with prof:
-            n_scans = _process_bags(slam, cfg, topics, max_scans, viz_every, live)
+            n_scans = _process_bags(slam, cfg, topics, max_scans, viz_every, live, writer)
         wall = time.perf_counter() - t_start
-        path = save_outputs(slam, cfg.result_dir, with_viz=bool(viz_every))
+        path = save_outputs(slam, cfg.result_dir, with_viz=bool(viz_every)) if writer else None
         log.info("processed %d scans in %.1fs -> %s", n_scans, wall, path)
         log.info("stage timings: %s", slam.metrics.summary())
         if live is not None:
@@ -108,7 +118,7 @@ def run(
     return slam
 
 
-def _process_bags(slam, cfg, topics, max_scans, viz_every, live=None):
+def _process_bags(slam, cfg, topics, max_scans, viz_every, live=None, writer=True):
     n_scans = 0
     last_pc_stamp = None
     for msg in rosbag.read_messages_multi(cfg.bag_dirs, topics):
@@ -123,7 +133,7 @@ def _process_bags(slam, cfg, topics, max_scans, viz_every, live=None):
             n_scans += 1
             if live is not None and n_scans % LIVE_PUBLISH_EVERY == 0:
                 live.publish(slam, n_scans)
-            if n_scans % CYCLIC_SAVE_EVERY == 0:
+            if writer and n_scans % CYCLIC_SAVE_EVERY == 0:
                 save_outputs(slam, cfg.result_dir, with_viz=viz_every and n_scans % viz_every == 0)
             if max_scans and n_scans >= max_scans:
                 break
@@ -164,7 +174,7 @@ def main(argv=None):
     parser.add_argument(
         "--distributed-keyframe-opt",
         action="store_true",
-        help="shard the keyframe submap adjustment over several cards (not ported yet: raises)",
+        help="spread the keyframe submap adjustment over the ranks of torchrun (one process without it)",
     )
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)

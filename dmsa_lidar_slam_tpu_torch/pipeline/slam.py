@@ -9,6 +9,10 @@ one device (the card unless the caller asks for the CPU):
   Gauss-Newton) -> keyframe decision -> keyframe creation (normals: K5 on
   the card) + submap DMSA -> output ledger.
 
+With Config.distributed_keyframe_opt the submap DMSA goes over the ranks
+of the process group instead (_distributed_keyframe_optimize; K1-K3 on
+every rank with the default spatial backend).
+
 Randomness: the reference draws its three downsampling priority vectors
 (preprocess, static points, keyframe cloud) from jax.random.PRNGKey(counter)
 with a per-call counter.  Here they come from `self.priorities(counter, n)`,
@@ -32,6 +36,8 @@ from dmsa_lidar_slam_tpu_torch.map import normals as nrm
 from dmsa_lidar_slam_tpu_torch.map import static_points as sp
 from dmsa_lidar_slam_tpu_torch.map.management import KeyframeMap
 from dmsa_lidar_slam_tpu_torch.ops import voxel
+from dmsa_lidar_slam_tpu_torch.parallel import keyframe_dist, launch
+from dmsa_lidar_slam_tpu_torch.parallel import mesh as pmesh
 from dmsa_lidar_slam_tpu_torch.pipeline import preprocess as pp
 from dmsa_lidar_slam_tpu_torch.pipeline.metrics import Metrics
 from dmsa_lidar_slam_tpu_torch.pipeline.output import OutputManager
@@ -41,11 +47,6 @@ from dmsa_lidar_slam_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
 from dmsa_lidar_slam_tpu_torch.utils.dtypes import POSE_DTYPE
 
 log = logging.getLogger("dmsa_slam_torch")
-
-DISTRIBUTED_NOT_PORTED = (
-    "distributed_keyframe_opt is not ported to PyTorch yet (ROADMAP.md Queue 1 item 12, "
-    "the distributed backends); run without it"
-)
 
 
 def draw_priorities(counter: int, n: int, device) -> torch.Tensor:
@@ -73,8 +74,6 @@ class DmsaSlam:
     def __init__(self, config: Optional[Config] = None, device=DEFAULT_DEVICE):
         self.config = config or Config()
         c = self.config
-        if c.distributed_keyframe_opt:
-            raise NotImplementedError(DISTRIBUTED_NOT_PORTED)
         self.device = resolve(device)
 
         self.scan_cap = -(-int(c.scan_cap_factor * c.max_num_points_per_scan) // 256) * 256
@@ -99,6 +98,8 @@ class DmsaSlam:
         self.received_imu = False
         self.old_window: Optional[OldWindow] = None
         self._prng_counter = 0
+        self._dist_kf_mesh = None  # the distributed keyframe optimization's mesh and
+        self._dist_kf_opt = None  # optimizer, built at their first use
         # tests may replace this to inject priorities (e.g. the reference's)
         self.priorities = lambda counter, n: draw_priorities(counter, n, self.device)
 
@@ -457,17 +458,47 @@ class DmsaSlam:
 
         data, params0 = self.kf_map.to_problem_data(from_id, c.balancing_factor_gravity, c.balancing_factor_odometry)
         min_grid = float(self.kf_map.grid_size[from_id : self.kf_map.count].min())
-        fwd = kfm.make_forward(self.map_shapes, use_grav, use_odom, True)
-        structured = kfm.make_structured(self.map_shapes, use_grav, use_odom, True)
-        result = opt.optimize(fwd, self._t(params0, POSE_DTYPE), data, self.settings_map, min_grid, structured_fn=structured)
-        if log.isEnabledFor(logging.INFO):
-            log.info("keyframe optim from %d: iters=%d stop=%d gaussians=%d", from_id, int(result.num_iters),
-                     int(result.stop_reason), int(result.num_gaussians))
-        self.kf_map.write_back(from_id, result.params.cpu().numpy())
+        if c.distributed_keyframe_opt:
+            params_opt = self._distributed_keyframe_optimize(
+                data, self._t(params0, POSE_DTYPE), min_grid, use_grav, use_odom, from_id)
+        else:
+            fwd = kfm.make_forward(self.map_shapes, use_grav, use_odom, True)
+            structured = kfm.make_structured(self.map_shapes, use_grav, use_odom, True)
+            result = opt.optimize(fwd, self._t(params0, POSE_DTYPE), data, self.settings_map, min_grid,
+                                  structured_fn=structured)
+            if log.isEnabledFor(logging.INFO):
+                log.info("keyframe optim from %d: iters=%d stop=%d gaussians=%d", from_id, int(result.num_iters),
+                         int(result.stop_reason), int(result.num_gaussians))
+            params_opt = result.params
+        self.kf_map.write_back(from_id, params_opt.cpu().numpy())
 
         # re-anchor the current trajectory at the corrected last keyframe (DmsaSlam.h:233-237)
         last = self.kf_map.count - 1
         self._reanchor_old_window(self.kf_map.orient_w[last], self.kf_map.transl_w[last])
+
+    def _distributed_keyframe_optimize(self, data, params0, min_grid: float, use_grav: bool, use_odom: bool,
+                                       from_id: int):
+        """keyframeOptimization over the ranks of the process group
+        (parallel.spatial, or parallel.keyframe_dist with dist_backend=
+        "hash"): the submap's points sharded over the ranks among which they
+        divide evenly, the normal equations reduced over the mesh, the small
+        chain solve replicated.  Without a process group the mesh is this
+        one rank.  The mesh and the optimizer are built at the first submap
+        and serve every later one."""
+        if self._dist_kf_mesh is None:
+            self._dist_kf_mesh = launch.global_keyframe_mesh(
+                "data", n_points=self.map_shapes.n_keyframes * self.map_shapes.n_pts_per_kf)
+            if self._dist_kf_mesh.member:
+                self._dist_kf_opt = keyframe_dist.make_submap_optimizer(
+                    self.config, self.settings_map, self._dist_kf_mesh, self.map_shapes, use_grav, use_odom)
+        mesh = self._dist_kf_mesh
+        params = params0
+        if mesh.member:
+            params, overflow = self._dist_kf_opt(params0, data, min_grid)
+            if int(overflow):
+                log.warning("spatial shuffle overflow: %d points dropped", int(overflow))
+            log.info("distributed keyframe optim from %d over %d ranks", from_id, mesh.size)
+        return pmesh.broadcast_from_mesh(mesh, params)
 
     def _reanchor_old_window(self, new_anchor_o, new_anchor_t):
         """Replace the stored window's anchor pose and recompose its global

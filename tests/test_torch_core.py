@@ -143,7 +143,7 @@ def test_port_never_imports_jax():
         "assert len(names) > 40, names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "import chip_smoke, tests.torch_bag, tests.torch_scenes\n"
+        "import chip_smoke, tests.torch_bag, tests.torch_scenes, tests.torch_dist\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'dmsa_lidar_slam_tpu'"
         " or m.startswith('dmsa_lidar_slam_tpu.')]\n"
         "assert not bad, bad\n"

@@ -23,10 +23,10 @@ def _sequence(seed=7):
     return SyntheticSequence(rng=np.random.default_rng(seed), noise_std=0.01, room_scale=0.45)
 
 
-def _run(tmp_path, pipeline, n_scans, pts, use_imu):
+def _run(tmp_path, pipeline, n_scans, pts, use_imu, **overrides):
     bag = str(tmp_path / "synthetic.bag")
     seq = write_sequence_bag(bag, _sequence(), n_scans, pts)
-    over = ref_e2e._overrides(bag, str(tmp_path), use_imu=use_imu)
+    over = dict(ref_e2e._overrides(bag, str(tmp_path), use_imu=use_imu), **overrides)
     slam = runner.run([], overrides=over, pipeline=pipeline, device="cpu")
     ref_e2e.check_outputs(tmp_path, seq, slam)
     return slam
@@ -53,12 +53,15 @@ def test_runner_on_bag(tmp_path, pipeline, use_imu):
 
 
 def test_runner_refuses_what_it_cannot_run(tmp_path):
-    """--distributed-keyframe-opt is not ported and says so, before any bag
-    is read; without a card the default device raises rather than running
-    on the CPU."""
-    settings = str(Path(__file__).resolve().parents[1] / "configs" / "slam_settings.yaml")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
-        runner.main([settings, "--distributed-keyframe-opt", "--pipeline", "host"])
+    """Without a card the default device raises rather than running on the
+    CPU.  --distributed-keyframe-opt, which the runner refused before the
+    distributed backends were ported, now runs: without torchrun's
+    environment on this one process, the keyframe optimization on a
+    one-rank mesh (parallel.spatial), and the outputs are written."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             runner.run([], overrides=bag_overrides(str(tmp_path / "none.bag"), str(tmp_path)), pipeline="host")
+    slam = _run(tmp_path, "host", n_scans=8, pts=700, use_imu=False, distributed_keyframe_opt=True,
+                dist_new_keyframe=0.08)
+    mesh = slam._dist_kf_mesh
+    assert mesh is not None and mesh.size == 1 and mesh.group is None, "the keyframe optimization did not run"

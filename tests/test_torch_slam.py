@@ -105,13 +105,27 @@ def test_map_points_match(runs):
     assert tslam.submap_points(span=1).shape[0] == tslam.kf_map.pt_mask[tslam.kf_map.count - 1].sum()
 
 
-def test_entry_points_refuse_cpu_fallback_and_distributed():
+def test_entry_points_refuse_cpu_fallback_and_distributed(runs):
     """Without a card the default device raises instead of running on the
-    CPU; the distributed keyframe optimization is not ported and says so."""
+    CPU.  distributed_keyframe_opt, which DmsaSlam refused before the
+    distributed backends were ported, now runs: with no process group the
+    keyframe optimization takes a one-rank mesh (parallel.spatial on this
+    process, as the reference takes a one-device mesh) and gives the
+    keyframes of the run without it."""
     import torch
 
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             DmsaSlam(_config())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12"):
-        DmsaSlam(small_config(distributed_keyframe_opt=True), device="cpu")
+    _, tslam, _ = runs
+    cfg = _config()
+    cfg.distributed_keyframe_opt = True
+    dslam = DmsaSlam(cfg, device="cpu")
+    dslam.priorities = jax_counter_priorities
+    _drive(dslam)
+    mesh = dslam._dist_kf_mesh
+    assert mesh is not None and mesh.size == 1 and mesh.group is None
+    n = tslam.kf_map.count
+    assert dslam.kf_map.count == n and dslam.kf_map.num_updates == tslam.kf_map.num_updates
+    np.testing.assert_allclose(dslam.kf_map.transl_w[:n], tslam.kf_map.transl_w[:n], atol=POS_ATOL)
+    np.testing.assert_allclose(dslam.kf_map.orient_w[:n], tslam.kf_map.orient_w[:n], atol=ORIENT_ATOL)
