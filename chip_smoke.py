@@ -21,7 +21,10 @@ printed on its own lines and none of them caught:
      (host_ms); K1's keys bit for bit against voxel.voxel_keys, with the
      grid as a host number and as a card scalar, and K1-K5 bit for bit
      against a second call; K1 and K3 once more at the window's real
-     masked share (WINDOW_MASKED_SHARE); K5 with its radius as a host
+     masked share (WINDOW_MASKED_SHARE); K1-K3 at the long configuration's
+     submap (phase h: n = 196,608 per grid over 49 table rows with the
+     split channel, masked at LONG_SUBMAP_MASKED_SHARE; K2 at P = 282, its
+     dense-J path; K3 at K = 15); K5 with its radius as a host
      number (the host pipeline's form) and as an f32 card scalar (the
      fused pipeline's), bit for bit the same, and timed both ways;
   3. the fused pipeline: FusedDmsaSlam on bench_sequence(3) with
@@ -83,6 +86,22 @@ printed on its own lines and none of them caught:
      ATE <= 0.03 m, a submap span > 0, no overflow, keyframe positions
      within FUSED_DIST_TOL_M of the one-rank run's checkpoint at that scan,
      and a one-rank run with the submap step off farther than that;
+  (h) the long configuration, the JAX package's long bench (bench.py
+     run_long): FusedDmsaSlam(long_config()) on long_sequence(3), all
+     LONG_SCANS (310) scans of 131,072 raw points over 128 rings, generated
+     before the run, with bench.py's stressors (IMU_DROPOUT_SCANS without
+     IMU, every 37th scan after scan 20 cut to 25%; a copy of
+     bench.py:113-137, apply_long_stressors): a 48-keyframe ring that fills
+     and retires, the uncapped submap suffix on 48 slots (P = 282, K2's
+     dense-J path).  Counters zeroed just before and read just after:
+     K1-K5 launched, K2's dense-J path counted (cuda_lib.BRANCHES) > 0,
+     48 keyframes at the end, a retired keyframe in the output ledger,
+     max_submap_span >= 17 and ATE <= 0.05 m (bench.py:47-48), a finite
+     trajectory of >= 3 poses.  Printed: the scan at which the span first
+     reached 17 and the first retirement, the submap solves (all, and
+     after the first retirement), wall ms per scan from scan 10 on and on
+     keyframe scans, the realtime ratio, peak memory, the ring's masked
+     share at the end, the phase's wall;
   5. the CUDA kernels one call of each kernel row runs on the card
      (device_launches) and the card's busy time for it (device_ms), from
      torch.profiler over one call after a warm-up, those inside torch ops
@@ -97,10 +116,14 @@ printed on its own lines and none of them caught:
      Last of all: the per-call profiles after a session this large (~10^5
      kernels) came back without their card records.
 
+Depth cut to make room for (h): (a) traces one fused scan (was 3: one
+scan holds every check of the phase, and on an H100 (a) takes ~85 s with
+one scan against ~3.5 min with three).  No other phase is cut.
+
 The line before the last is a JSON object with one entry per kernel and
 shape (launches: the sum over the fused, fused_resumed, host,
-host_resumed, single_card_100kf (g1) and distributed ((g2), and (g3) and
-(g5) on both ranks) paths, each in launches_by_path); the last line is
+host_resumed, single_card_100kf (g1), distributed ((g2), and (g3) and
+(g5) on both ranks) and long (h) paths, each in launches_by_path); the last line is
 {"ok": true, "device": {...}}.  Any failed check
 raises, so a failing run prints no result.
 """
@@ -129,7 +152,7 @@ PEAK_F32_OPS_S = 67e12
 # mask 5%.
 WINDOW_MASKED_SHARE = 0.3
 SAVE_AT = 30  # the fused checkpoint: after scan 30 of N_SCANS (phases a, b)
-TRACE_SCANS = 3  # fused window scans under traceutil.capture (phase a)
+TRACE_SCANS = 1  # fused window scans under traceutil.capture (phase a; cut from 3 for phase h)
 HOST_SAVE_AT, HOST_CK_SCANS = 17, 22  # the host checkpoint run (phase c): a keyframe at ~20
 # resumed keyframes against the uninterrupted run's, m and rad: on an H100
 # the fused pipeline repeated its bits (0: K1-K5 and its torch ops are
@@ -171,6 +194,21 @@ HASH_GAIN = 0.65  # (g4): parameter error at most this share of the start's, tes
 # with the submap step off must be farther than this from it (1.24 mm)
 FUSED_DIST_TOL_M = 5e-4
 DIST_RANK_TIMEOUT_S = 480  # the 2-rank sub-phases (g3)-(g5), start-up included
+# phase (h), the JAX package's long bench (bench.py:43-52, 55-67, 113-183):
+# FusedDmsaSlam(long_config()) on long_sequence(3), OS-128 raw scans
+LONG_SEED, LONG_SCANS, LONG_WARM = 3, 310, 10  # bench.py:52 and run_long's n_warm
+LONG_PTS, LONG_RINGS = 131072, 128
+LONG_ATE_GATE_M, LONG_MIN_SPAN = 0.05, 17  # bench.py:47-48
+# bench.py:113-120's stressors: 2 s without any IMU, and every 37th scan
+# after scan 20 cut to 25% of its points
+IMU_DROPOUT_SCANS = range(150, 170)
+SHORT_SCAN_EVERY, SHORT_SCAN_KEEP = 37, 0.25
+# the long configuration's submap problem: 48 keyframe slots x 4,096 points
+# (n = 196,608 per grid, Dtab = 49, P = 6 x 47 = 282: K2's dense-J path),
+# its K1 input masked at LONG_SUBMAP_MASKED_SHARE: 1 - valid points / slots
+# of the full ring at the end of phase (h), 0.2861 on an H100 (PERF.md)
+LONG_SUBMAP_SHAPE = (48, 4096)
+LONG_SUBMAP_MASKED_SHARE = 0.286
 
 
 def _bound(n_bytes, n_ops):
@@ -388,13 +426,14 @@ def _k1_row(results, calls, args_by_grid, label):
     builds = [_k1_build(args) for args in args_by_grid]
     args = args_by_grid[-1]
     n, dtab = args[0].shape[0], args[7].shape[0]
-    # bytes: points, mask, rings, local points, int64 table index and the
-    # table in; the [16, n] packed rows out.  operations: ~45 per point
-    # (transform, moments), ~200 per occupied cell (floored inverse)
+    # bytes: points, mask, rings, local points, int64 table index, the
+    # split ids where given and the table in; the [16, n] packed rows out.
+    # operations: ~45 per point (transform, moments), ~200 per occupied
+    # cell (floored inverse)
     _record(results, calls, "build_packed", "dmsa_lidar_slam_tpu_torch/csrc/k1_build.cu",
             "dmsa_lidar_slam_tpu/ops/fused_residuals.py:875", max(e for _, e, _ in builds), 2e-2,
             lambda args=args: fr.build_packed(*args), 10, lambda args=args: fr.build_packed_ref(*args), 3,
-            label, 101 * n + 32 * dtab, 45 * n + 200 * builds[-1][2])
+            label, (101 + 4 * (len(args) > 8)) * n + 32 * dtab, 45 * n + 200 * builds[-1][2])
     return torch.cat([b[0] for b in builds], dim=1)
 
 
@@ -450,6 +489,29 @@ def _k3_row(results, calls, device, packed, tab, label):
             label, 15 * 32 * tab.shape[0] + 64 * m + 60, 15 * (50 * m_valid + 20 * n_cells))
 
 
+def long_rows(results, calls, device):
+    """K1 at the long configuration's submap shape and masked share (both
+    grids, split ids as the submap's six normal classes), K2 at P = 282 on
+    its packed rows (the dense-J path), K3 at K = 15 on them."""
+    import numpy as np
+    import torch
+
+    s, ppk = LONG_SUBMAP_SHAPE
+    n, dtab, p_dim = s * ppk, s + 1, 6 * (s - 1)
+    rng = np.random.default_rng(LONG_SEED)
+    pts, mask, rings, xs, ti, tab = _scene_problem(rng, n, dtab, device, LONG_SUBMAP_MASKED_SHARE)
+    split = torch.as_tensor(rng.integers(0, 6, size=n), dtype=torch.int32, device=device)
+    g = torch.tensor(0.4, dtype=torch.float32, device=device)
+    arg_sets = [(pts, mask, rings, xs, ti, f * g, 10, tab, split) for f in (1.0, 2.5)]
+    label = f"n={n} long submap, masked={LONG_SUBMAP_MASKED_SHARE}"
+    packed = _k1_row(results, calls, arg_sets, label)
+    dtabs = 0.1 * torch.randn(p_dim, dtab, 8, device=device, generator=torch.Generator(device=device).manual_seed(3))
+    dtabs[:, -1, :] = 0.0
+    m = packed.shape[1]
+    _k2_row(results, calls, tab, dtabs, packed, m // 10 + 2, f"P={p_dim} M={m} long submap")
+    _k3_row(results, calls, device, packed, tab, f"K=15 Dtab={dtab} M={m} long submap")
+
+
 def kernel_checks(device):
     import numpy as np
     import torch
@@ -502,6 +564,10 @@ def kernel_checks(device):
     packed, tab = packs[28672, WINDOW_MASKED_SHARE]
     _k3_row(results, calls, device, packed, tab,
             f"K=15 Dtab={tab.shape[0]} M={packed.shape[1]} masked={WINDOW_MASKED_SHARE}")
+
+    # K1-K3 at the long configuration's submap (phase h): 2 x 196,608
+    # rows over 49 table rows with the split channel, P = 282
+    long_rows(results, calls, device)
 
     # K4 at the two static-point queries of a bench scan
     for n_ref, n_q in ((20480, 12288), (8192, 20480)):
@@ -562,20 +628,52 @@ def kernel_checks(device):
     return results, calls
 
 
+def sequence_data(seq, n_scans, pts, n_rings=16):
+    """The first n_scans scans of `seq`, `pts` points over `n_rings` rings
+    each, with their IMU, generated as bench.py:55-67 does:
+    [(points, stamps, rings, imu stamps, acc, gyr)]."""
+    data = []
+    t_imu = seq.t_start - 0.2
+    for i in range(n_scans):
+        t_end = seq.t_start + (i + 1) * seq.sweep
+        ts, acc, gyr = seq.imu_samples(t_imu, t_end)
+        data.append((*seq.scan(i, pts, n_rings=n_rings), ts, acc, gyr))
+        t_imu = t_end
+    return data
+
+
 def bench_data(n_scans, pts=PTS_PER_SCAN):
     """bench_sequence(3) and its first n_scans scans of `pts` points with
     their IMU: (seq, [(points, stamps, rings, imu stamps, acc, gyr)])."""
     from dmsa_lidar_slam_tpu_torch.io.synthetic import bench_sequence
 
     seq = bench_sequence(3)
-    data = []
-    t_imu = seq.t_start - 0.2
-    for i in range(n_scans):
-        t_end = seq.t_start + (i + 1) * seq.sweep
-        ts, acc, gyr = seq.imu_samples(t_imu, t_end)
-        data.append((*seq.scan(i, pts, n_rings=16), ts, acc, gyr))
-        t_imu = t_end
-    return seq, data
+    return seq, sequence_data(seq, n_scans, pts)
+
+
+def apply_long_stressors(data, dropout=IMU_DROPOUT_SCANS, every=SHORT_SCAN_EVERY, after=20, keep=SHORT_SCAN_KEEP):
+    """bench.py:123-137: the IMU of the `dropout` scans dropped, and every
+    `every`-th scan after scan `after` cut to `keep` of its points.  The
+    truth is unchanged: only the sensor stream degrades."""
+    out = []
+    for i, (pts, stamps, rings, ts, acc, gyr) in enumerate(data):
+        if i in dropout:
+            ts, acc, gyr = ts[:0], acc[:0], gyr[:0]
+        if i > after and i % every == 0:
+            n = max(1, int(len(pts) * keep))
+            pts, stamps, rings = pts[:n], stamps[:n], rings[:n]
+        out.append((pts, stamps, rings, ts, acc, gyr))
+    return out
+
+
+def long_data(n_scans=None, pts=None):
+    """long_sequence(LONG_SEED) and its first n_scans (LONG_SCANS) scans of
+    `pts` (LONG_PTS) points over LONG_RINGS rings with their IMU, the
+    stressors applied (bench.py run_long): (seq, data)."""
+    from dmsa_lidar_slam_tpu_torch.io.synthetic import long_sequence
+
+    seq = long_sequence(LONG_SEED)
+    return seq, apply_long_stressors(sequence_data(seq, n_scans or LONG_SCANS, pts or LONG_PTS, LONG_RINGS))
 
 
 def write_truth(seq, est_path, out_path):
@@ -957,6 +1055,103 @@ def native_phase():
                points=int(msg.width), bitwise_equal=equal, host_native_ms=native_ms, host_numpy_ms=numpy_ms)
     print("  native decode " + json.dumps(out), flush=True)
     assert equal, "native decode differs from the numpy decoder"
+
+
+def record_step(slam, step, spans, retired_at):
+    """After `slam` (either package's FusedDmsaSlam) ran step `step`: if it
+    added a keyframe, its submap span into spans[step] and, if it retired
+    one, `step` onto retired_at."""
+    import numpy as np
+
+    from dmsa_lidar_slam_tpu_torch.pipeline.fused import EV_KEYFRAME
+
+    ev = slam.state.events[step % slam.shapes.ev_cap]
+    ev = ev.cpu().numpy() if hasattr(ev, "cpu") else np.asarray(ev)
+    if ev[0] == EV_KEYFRAME:
+        spans[step] = int(round(float(ev[7])))
+        if ev[8] > 0.5:
+            retired_at.append(step)
+
+
+def span_summary(spans, retired_at):
+    """The keyframe steps' record: the first retirement, the first span of
+    at least LONG_MIN_SPAN, the steps that ran a submap solve."""
+    deep = [k for k, v in sorted(spans.items()) if v >= LONG_MIN_SPAN]
+    first_ret = retired_at[0] if retired_at else None
+    return dict(keyframe_steps=len(spans), first_retirement_scan=first_ret,
+                first_span_scan=deep[0] if deep else None, submap_solves=sum(v > 0 for v in spans.values()),
+                submap_solves_after_first_retirement=sum(v > 0 for k, v in spans.items()
+                                                         if first_ret is not None and k >= first_ret))
+
+
+def long_phase(device):
+    """Phase (h): FusedDmsaSlam(long_config()) on the card over LONG_SCANS
+    scans of long_sequence(LONG_SEED), LONG_PTS raw points over LONG_RINGS
+    rings, with bench.py's stressors; the data generated before the run.
+    Counters zeroed just before and read just after.  Each step's event
+    row is read after its scan's timed region, for the scan at which the
+    submap span first reaches LONG_MIN_SPAN and the first retirement.
+    Returns the launches."""
+    import numpy as np
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.io.synthetic import ate_rmse, long_config
+    from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
+    from dmsa_lidar_slam_tpu_torch.pipeline.fused import FusedDmsaSlam, submap_keyframes
+
+    t0 = time.perf_counter()
+    seq, data = long_data()
+    gen_s = time.perf_counter() - t0
+    slam = FusedDmsaSlam(long_config(), flush_every=20, device=device)
+    sh = slam.shapes
+    s_sub = submap_keyframes(slam.config, sh)
+    assert (sh.raw_cap, sh.kf_cap, sh.kf_pts_cap, s_sub) == (LONG_PTS, *LONG_SUBMAP_SHAPE, sh.kf_cap), (sh, s_sub)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    walls, spans, retired_at = [], {}, []
+    for pts, stamps, rings, ts, acc, gyr in data:
+        stepped = slam.scan_counter
+        t = time.perf_counter()
+        slam.process_imu_batch(acc, gyr, ts)
+        slam.process_scan(pts, stamps, rings)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        if slam.scan_counter > stepped:  # the step of scan `stepped` ran (one scan is buffered)
+            record_step(slam, stepped, spans, retired_at)
+        if len(walls) % 50 == 0:
+            print(f"    scan {len(walls)}: {slam.kf_count} keyframes, deepest span {max(spans.values(), default=0)}, "
+                  f"{1000.0 * sum(walls[-50:]) / 50:.1f} ms per scan over the last 50", flush=True)
+    launches, dense_j = dict(cuda_lib.LAUNCHES), cuda_lib.BRANCHES["gn_system_dense_j"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st, tr, _ = slam.all_poses()
+    ate = ate_rmse(st, tr, seq) if len(st) >= 3 else float("nan")
+    kf = slam.state.kf
+    masked = 1.0 - float(kf.pt_mask[: slam.kf_count].sum()) / (sh.kf_cap * sh.kf_pts_cap)
+    kf_walls = [walls[k + 1] for k in spans if k + 1 >= LONG_WARM]  # scan k steps while scan k + 1 is fed
+    timed = sum(walls[LONG_WARM:])
+    out = dict(
+        scans=len(data), raw_points=LONG_PTS, rings=LONG_RINGS, gen_s=gen_s,
+        keyframes=slam.kf_count, retired_to_output=slam.output.num_static_keyframes,
+        trajectory_poses=len(st), max_submap_span=slam.max_submap_span, span_gate=LONG_MIN_SPAN,
+        **span_summary(spans, retired_at),
+        spans_by_scan={k: spans[k] for k in sorted(spans)[:: max(1, len(spans) // 12)]},
+        ate_m=ate, ate_gate_m=LONG_ATE_GATE_M,
+        wall_ms_per_scan_10_on=1000.0 * timed / (len(data) - LONG_WARM),
+        wall_ms_per_keyframe_scan=1000.0 * float(np.mean(kf_walls)) if kf_walls else None,
+        data_s_per_wall_s=(len(data) - LONG_WARM) * seq.sweep / timed,
+        peak_mem_gib=peak, ring_masked_share=masked, launches=launches, gn_system_dense_j=dense_j,
+    )
+    print("  long run " + json.dumps(out), flush=True)
+    for k, v in launches.items():
+        assert v > 0, f"kernel {k} never launched on the long path"
+    assert dense_j > 0, "K2's dense-J path never ran in the long run"
+    assert slam.kf_count == sh.kf_cap, f"{slam.kf_count} keyframes at the end, not {sh.kf_cap}"
+    assert slam.output.num_static_keyframes >= 1 and retired_at, "no keyframe retired to the output"
+    assert slam.max_submap_span >= LONG_MIN_SPAN, f"max submap span {slam.max_submap_span} < {LONG_MIN_SPAN}"
+    assert len(st) >= 3 and np.all(np.isfinite(tr)), "the output trajectory is short or not finite"
+    assert ate <= LONG_ATE_GATE_M, f"long run ATE {ate} above {LONG_ATE_GATE_M}"
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -1358,6 +1553,7 @@ def dist_phase(device, ckpt_path, results, calls):
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card")
     smi = subprocess.run(
@@ -1405,6 +1601,8 @@ def main():
     phase("(f) native PointCloud2 decode:", native_phase)
     paths["single_card_100kf"], paths["distributed"] = phase(
         "(g) the distributed keyframe adjustment (parallel/*):", dist_phase, device, ckpt, results, calls)
+    paths["long"] = phase(f"(h) the long configuration, {LONG_SCANS} scans of {LONG_PTS:,} points:", long_phase,
+                          device)
     print("CUDA kernels per call (torch.profiler):", flush=True)
     for r, fn in zip(results, calls):
         device_ms, kernels = _profile(fn)
@@ -1418,6 +1616,7 @@ def main():
         k = r["name"].split()[0]
         r["launches"] = sum(p[k] for p in paths.values())
         r["launches_by_path"] = {name: p[k] for name, p in paths.items()}
+    print(f"script wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

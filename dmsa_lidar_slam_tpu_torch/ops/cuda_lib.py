@@ -9,7 +9,9 @@ cudaGetLastError(); `check` raises if it is not 0.
 
 Nothing here runs at import time: importing the package needs neither
 nvcc nor a card.  Each kernel wrapper adds one to LAUNCHES[name] where it
-launches its kernel, and nowhere else.
+launches its kernel, and nowhere else; BRANCHES counts the launches of a
+wrapper that took one of its kernel's paths (K2's dense-J path for
+P + 1 > 128).
 """
 
 import ctypes
@@ -30,6 +32,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinf
 LAUNCHES = {
     "build_packed": 0, "gn_system": 0, "cand_errors": 0, "min_sq_dist": 0, "radius_neighbor_moments": 0,
 }
+BRANCHES = {"gn_system_dense_j": 0}
 BUILD_SECONDS = None  # wall time of the last nvcc build (None: none ran)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -62,8 +65,9 @@ _lib = None
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BRANCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc():

@@ -256,6 +256,7 @@ def gn_system(tab, dtabs, packed, max_cells=None):
         buf, ptrs = _scratch(dev, *stage, small_partial)
         cuda_lib.check(lib.k2_gn_small(P(tabc), P(jt), p_dim, P(pk), m, *ptrs, P(hext), stream), "k2_gn_small")
         return hext
+    cuda_lib.BRANCHES["gn_system_dense_j"] += 1
     rmax = m if max_cells is None else max(1, min(m, int(max_cells)))
     tiles = -(-p1 // 64)
     splits = max(1, min(-(-264 // (tiles * tiles)), -(-rmax // 256)))

@@ -108,6 +108,7 @@ def test_wrappers_take_plain_versions_on_cpu(giant_cell):
     ref, rv, q, qv = _clouds(2, 300, 200)
     assert torch.equal(nb.min_sq_dist(ref, rv, q, qv), nb.min_sq_dist_ref(ref, rv, q, qv))
     assert all(v == 0 for v in cuda_lib.LAUNCHES.values())
+    assert all(v == 0 for v in cuda_lib.BRANCHES.values())
 
 
 @pytest.mark.parametrize("chunk", [32, fr.CHUNK])
@@ -407,9 +408,10 @@ def test_k2_large_p_matches_plain_on_card():
                                   dtype=torch.float32, device=dev)
     dtabs[:, -1] = 0.0
     pk = fr.build_packed(*args)[0]
-    before = cuda_lib.LAUNCHES["gn_system"]
+    before, dense = cuda_lib.LAUNCHES["gn_system"], cuda_lib.BRANCHES["gn_system_dense_j"]
     h = nn(fr.gn_system(tab, dtabs, pk, max_cells=pk.shape[1] // 4 + 2))
     assert cuda_lib.LAUNCHES["gn_system"] == before + 1
+    assert cuda_lib.BRANCHES["gn_system_dense_j"] == dense + 1
     h_r = nn(fr.gn_system_ref(tab, dtabs, pk, include_mean_term=False))
     np.testing.assert_allclose(h, h_r, rtol=1e-3, atol=1e-4 * np.abs(h_r).max())
 

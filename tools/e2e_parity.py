@@ -3,10 +3,15 @@
 CPU, at the bench's scale.
 
     python3 tools/e2e_parity.py [--scans 50] [--points 20000] [--out build/e2e_parity]
+    python3 tools/e2e_parity.py --long [--scans 110]
 
 Both packages' fused pipelines (FusedDmsaSlam with bench_config(), flush
 every 20 scans) run bench_sequence(3), --scans scans of --points raw points
-with their IMU (chip_smoke.bench_data), on the CPU.  The reference runs its tabular optimizer path
+with their IMU (chip_smoke.bench_data), on the CPU.  With --long they run
+the JAX package's long bench instead: long_config() on long_sequence(3),
+--scans scans of 131,072 raw points over 128 rings with
+bench.py's stressors (chip_smoke.long_data); its output lands in
+build/e2e_parity_long.  The reference runs its tabular optimizer path
 (DMSA_FUSED_TABULAR=1: its kernels as their plain XLA versions), the port
 its kernels' plain PyTorch versions; the port's step takes the reference's
 own jax PRNG bits, so both downsample the same points and what differs is
@@ -17,9 +22,14 @@ pipeline/evaluate report:
   ate_port, ate_reference   each trajectory's ATE against the truth;
   port_vs_reference         ATE and RPE (1-frame intervals) of the port's
                             trajectory against the reference's;
-  evaluate_packages_agree   both packages' evaluate gave the same numbers.
+  evaluate_packages_agree   both packages' evaluate gave the same numbers;
+  kf_count, max_submap_span, retired, ...
+                            each run's keyframes, deepest submap span,
+                            keyframes retired to its output, and its
+                            keyframe steps (chip_smoke.span_summary).
 
-Prints one JSON line (also written to --out/e2e_parity.json).  The
+Prints one JSON line (also written to --out/e2e_parity.json, with --long
+e2e_parity_long.json).  The
 reference and jax are imported by name, only inside the reference half
 (_reference).
 """
@@ -38,20 +48,29 @@ sys.path.insert(0, ROOT)
 
 
 def drive(slam, data, result_dir):
-    """Feed every scan; write Poses.txt; (path, kf_count, host s/scan)."""
-    from chip_smoke import feed
+    """Feed every scan, reading each step's event row; write Poses.txt;
+    (path, run summary)."""
+    from chip_smoke import feed, record_step, span_summary
 
+    spans, retired_at = {}, []
     t0 = time.perf_counter()
-    feed(slam, data)
+    for rec in data:
+        stepped = slam.scan_counter
+        feed(slam, [rec])
+        if slam.scan_counter > stepped:
+            record_step(slam, stepped, spans, retired_at)
     wall = (time.perf_counter() - t0) / len(data)
-    return slam.save_poses(result_dir), slam.kf_count, wall
+    path = slam.save_poses(result_dir)
+    return path, dict(kf_count=slam.kf_count, max_submap_span=slam.max_submap_span,
+                      retired=slam.output.num_static_keyframes, **span_summary(spans, retired_at),
+                      host_s_per_scan_cpu=wall)
 
 
-def port_run(data, result_dir, priorities):
-    from dmsa_lidar_slam_tpu_torch.io.synthetic import bench_config
+def port_run(data, result_dir, priorities, config):
+    synthetic = importlib.import_module("dmsa_lidar_slam_tpu_torch.io.synthetic")
     from dmsa_lidar_slam_tpu_torch.pipeline.fused import FusedDmsaSlam
 
-    slam = FusedDmsaSlam(bench_config(), flush_every=20, device="cpu")
+    slam = FusedDmsaSlam(getattr(synthetic, config)(), flush_every=20, device="cpu")
     slam.priorities = lambda seed: priorities(seed, slam.shapes)
     return drive(slam, data, result_dir)
 
@@ -67,10 +86,10 @@ def _reference(module):
     return importlib.import_module(module)
 
 
-def reference_run(data, result_dir):
-    bench_config = _reference("dmsa_lidar_slam_tpu.io.synthetic").bench_config
+def reference_run(data, result_dir, config):
+    make_config = getattr(_reference("dmsa_lidar_slam_tpu.io.synthetic"), config)
     FusedDmsaSlam = _reference("dmsa_lidar_slam_tpu.pipeline.fused").FusedDmsaSlam
-    return drive(FusedDmsaSlam(bench_config(), flush_every=20), data, result_dir)
+    return drive(FusedDmsaSlam(make_config(), flush_every=20), data, result_dir)
 
 
 def reference_priorities():
@@ -112,31 +131,40 @@ def evaluate_all(port_poses, ref_poses, port_truth, ref_truth):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scans", type=int, default=50)
-    ap.add_argument("--points", type=int, default=20000)
-    ap.add_argument("--out", default=os.path.join(ROOT, "build", "e2e_parity"))
+    ap.add_argument("--long", action="store_true", help="the long bench: long_config() on long_sequence(3)")
+    ap.add_argument("--scans", type=int, default=None, help="default 50, with --long 110")
+    ap.add_argument("--points", type=int, default=None, help="default 20000, with --long 131072")
+    ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    name = "e2e_parity_long" if args.long else "e2e_parity"
+    args.out = args.out or os.path.join(ROOT, "build", name)
     os.makedirs(args.out, exist_ok=True)
 
-    from chip_smoke import bench_data, write_truth
+    from chip_smoke import LONG_PTS, bench_data, long_data, write_truth
 
-    seq, data = bench_data(args.scans, args.points)
-    ref_poses, ref_kf, ref_s = reference_run(data, os.path.join(args.out, "reference"))
-    port_poses, port_kf, port_s = port_run(data, os.path.join(args.out, "port"), reference_priorities())
+    if args.long:
+        args.scans, args.points = args.scans or 110, args.points or LONG_PTS
+        seq, data = long_data(args.scans, args.points)
+        config = "long_config"
+    else:
+        args.scans, args.points = args.scans or 50, args.points or 20000
+        seq, data = bench_data(args.scans, args.points)
+        config = "bench_config"
+    ref_poses, ref_run = reference_run(data, os.path.join(args.out, "reference"), config)
+    port_poses, port_run_ = port_run(data, os.path.join(args.out, "port"), reference_priorities(), config)
     port_truth = os.path.join(args.out, "truth_port.txt")
     ref_truth = os.path.join(args.out, "truth_reference.txt")
     write_truth(seq, port_poses, port_truth)
     write_truth(seq, ref_poses, ref_truth)
     ev = evaluate_all(port_poses, ref_poses, port_truth, ref_truth)
     res = dict(
-        scans=args.scans, points=args.points, device="cpu",
-        kf_count=dict(port=port_kf, reference=ref_kf),
-        host_s_per_scan_cpu=dict(port=port_s, reference=ref_s),
+        config=config, scans=args.scans, points=args.points, device="cpu",
+        **{k: dict(port=port_run_[k], reference=ref_run[k]) for k in ref_run},
         **ev["dmsa_lidar_slam_tpu_torch"],
         evaluate_packages_agree=ev["dmsa_lidar_slam_tpu_torch"] == ev["dmsa_lidar_slam_tpu"],
     )
     line = json.dumps(res)
-    with open(os.path.join(args.out, "e2e_parity.json"), "w") as f:
+    with open(os.path.join(args.out, f"{name}.json"), "w") as f:
         f.write(line + "\n")
     print(line, flush=True)
 

@@ -3,10 +3,16 @@
 
     python3 tools/torch_profile.py --pipeline host --scans 40 --profile 1
     python3 tools/torch_profile.py --pipeline fused --profile 0 --root path/to/other/checkout
+    python3 tools/torch_profile.py --pipeline fused --config long
 
 Feeds bench_sequence(3) at bench_config() width (20,000 raw points per
 scan, with its IMU) straight to the pipeline's process_imu_batch /
-process_scan, synchronizing the card after every scan.  Prints one JSON
+process_scan, synchronizing the card after every scan.  With --config long
+(the counterpart of tools/profile_long.py, fused pipeline only) it feeds
+long_sequence(3) to long_config(): 131,072 raw points over 128 rings with
+bench.py's stressors (chip_smoke.long_data), 40 warm-up scans and then the
+profiled ones (by default 46 scans, the last 5 profiled: the keyframe step
+of scan 44 and its submap solve at 48 slots among them).  Prints one JSON
 line:
 
   wall_ms_per_scan     host clock per scan over the unprofiled scans from
@@ -26,6 +32,7 @@ line:
                        trace takes seconds per 10^5 launches, so keep
                        --profile small;
   launches             the port's own kernel counters over the whole run;
+  keyframes_profiled   keyframes added during the profiled scans;
   k1_masked_share      with --mask-share (fused pipeline): per K1 input
                        size n, the K1 calls and the share of their n slots
                        that are masked (1 - valid / n, over all calls).
@@ -48,38 +55,40 @@ import time
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--pipeline", choices=["host", "fused"], default="host")
-    ap.add_argument("--scans", type=int, default=40)
-    ap.add_argument("--profile", type=int, default=1, help="profile the last N scans (0: none)")
+    ap.add_argument("--config", choices=["bench", "long"], default="bench")
+    ap.add_argument("--scans", type=int, default=None, help="default 40, with --config long 46")
+    ap.add_argument("--profile", type=int, default=None, help="profile the last N scans (0: none); "
+                    "default 1, with --config long 5")
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--top", type=int, default=8)
     ap.add_argument("--mask-share", action="store_true", help="count the masked share of K1's inputs")
     args = ap.parse_args(argv)
+    long = args.config == "long"
+    if long and args.pipeline != "fused":
+        ap.error("--config long runs the fused pipeline")
+    args.scans = args.scans or (46 if long else 40)
+    args.profile = (5 if long else 1) if args.profile is None else args.profile
     sys.path.insert(0, os.path.abspath(args.root))
 
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile: needs a CUDA card")
-    from dmsa_lidar_slam_tpu_torch.io.synthetic import ate_rmse, bench_config, bench_sequence
+    from chip_smoke import bench_data, long_data
+    from dmsa_lidar_slam_tpu_torch.io.synthetic import ate_rmse, bench_config, long_config
     from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
 
     dev = torch.device("cuda", 0)
-    seq = bench_sequence(3)
-    data = []
-    t_imu = seq.t_start - 0.2
-    for i in range(args.scans):
-        t_end = seq.t_start + (i + 1) * seq.sweep
-        ts, acc, gyr = seq.imu_samples(t_imu, t_end)
-        data.append((*seq.scan(i, 20000, n_rings=16), ts, acc, gyr))
-        t_imu = t_end
+    seq, data = long_data(args.scans) if long else bench_data(args.scans)
+    config = long_config() if long else bench_config()
     if args.pipeline == "host":
         from dmsa_lidar_slam_tpu_torch.pipeline.slam import DmsaSlam
 
-        slam = DmsaSlam(bench_config(), device=dev)
+        slam = DmsaSlam(config, device=dev)
     else:
         from dmsa_lidar_slam_tpu_torch.pipeline.fused import FusedDmsaSlam
 
-        slam = FusedDmsaSlam(bench_config(), flush_every=20, device=dev)
+        slam = FusedDmsaSlam(config, flush_every=20, device=dev)
     cuda_lib.library()
     cuda_lib.reset_launches()
     masks = {}  # K1 input size n -> [calls, slots, valid]
@@ -110,11 +119,15 @@ def main(argv=None):
             out.append(time.perf_counter() - t0)
         return out
 
+    def keyframes():
+        return slam.kf_map.num_updates if args.pipeline == "host" else int(slam.state.kf.num_updates)
+
     walls = list(enumerate(run(data[:a])))
     prof_out = {}
     if b > a:
         from dmsa_lidar_slam_tpu_torch.pipeline import traceutil
 
+        kf0 = keyframes()
         with traceutil.capture() as trace_dir:
             prof_wall = sum(run(data[a:b]))
         busy_ms, kernels, launches = traceutil.op_totals(trace_dir)
@@ -140,6 +153,7 @@ def main(argv=None):
                 (k[:80], v / 1000.0 / n_prof) for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[: args.top]
             ],
             port_kernels_per_scan=port,
+            keyframes_profiled=keyframes() - kf0,
         )
 
     if args.pipeline == "host":
@@ -152,6 +166,7 @@ def main(argv=None):
     timed = [dt for i, dt in walls if i >= 10]
     out = dict(
         pipeline=args.pipeline,
+        config=args.config,
         root=os.path.abspath(args.root),
         device=torch.cuda.get_device_name(0),
         scans=args.scans,
