@@ -24,9 +24,12 @@ printed on its own lines and none of them caught:
      masked share (WINDOW_MASKED_SHARE); K1-K3 at the long configuration's
      submap (phase h: n = 196,608 per grid over 49 table rows with the
      split channel, masked at LONG_SUBMAP_MASKED_SHARE; K2 at P = 282, its
-     dense-J path; K3 at K = 15); K5 with its radius as a host
-     number (the host pipeline's form) and as an f32 card scalar (the
-     fused pipeline's), bit for bit the same, and timed both ways;
+     dense-J path; K3 at K = 15); K1's 12-row layout (observation
+     weights uniform in [0.5, 2] and the split channel of the surfaces'
+     normals, at n = 28,672, 5% and WINDOW_MASKED_SHARE masked; its
+     launches are cuda_lib.BRANCHES["build_rows12"]); K5 with its radius
+     as a host number (the host pipeline's form) and as an f32 card scalar
+     (the fused pipeline's), bit for bit the same, and timed both ways;
   3. the fused pipeline: FusedDmsaSlam on bench_sequence(3) with
      bench_config(), 50 scans of 20,000 points.  Launch counters are zeroed
      just before and read just after; every kernel must have run,
@@ -86,6 +89,26 @@ printed on its own lines and none of them caught:
      ATE <= 0.03 m, a submap span > 0, no overflow, keyframe positions
      within FUSED_DIST_TOL_M of the one-rank run's checkpoint at that scan,
      and a one-rank run with the submap step off farther than that;
+  (i) the optimizer's tabular path with per-point observation weights
+     (K1's 12-row layout, then K2 and K3) on the keyframe problem of
+     bench_config's 16-keyframe submap (16 x 4,096 points, P = 90), its
+     forward returning weights uniform in [0.5, 2], at the pipelines'
+     keyframe settings: counters zeroed just before and read just after
+     the shipped call, the 12-row branch, K2 and K3 launched, the keyframe
+     position error below the start's; K1's 12-row layout on the inputs
+     that the optimizer gives it here (65,536 points over 17 table rows,
+     both grids), as a phase 2 row (K1's tolerances against its plain
+     version, bit for bit call to call); one iteration through the kernels
+     within WEIGHTED_ITER_TOL of the same iteration through their plain
+     versions on the card, while the weights move that iteration by at
+     least WEIGHT_EFFECT_MIN;
+  (j) the multi-chip dry run (parallel/dryrun.py, the JAX package's
+     __graft_entry__.dryrun_multichip) on MULTICHIP_RANKS spawned ranks
+     sharing the card over gloo, on the flagship 32 x 2,048 map: the hash
+     and the spatial backend each closer to the truth than the start and
+     within 0.02 m of the single-card optimizer, no overflow, the ranks
+     bit-identical, K1-K3 launched on every rank; the collectives of one
+     iteration of each backend (parallel/mesh.py's counter) printed;
   (h) the long configuration, the JAX package's long bench (bench.py
      run_long): FusedDmsaSlam(long_config()) on long_sequence(3), all
      LONG_SCANS (310) scans of 131,072 raw points over 128 rings, generated
@@ -118,16 +141,21 @@ printed on its own lines and none of them caught:
 
 Depth cut to make room for (h): (a) traces one fused scan (was 3: one
 scan holds every check of the phase, and on an H100 (a) takes ~85 s with
-one scan against ~3.5 min with three).  No other phase is cut.
+one scan against ~3.5 min with three).  No other phase is cut; (i) and
+(j) take ~5 s and ~35 s on an H100, and (j)'s map (MULTICHIP_SHAPE) is
+the depth to cut first should the script outgrow its time.
 
 The line before the last is a JSON object with one entry per kernel and
 shape (launches: the sum over the fused, fused_resumed, host,
 host_resumed, single_card_100kf (g1), distributed ((g2), and (g3) and
-(g5) on both ranks) and long (h) paths, each in launches_by_path); the last line is
+(g5) on both ranks), weighted (i), multichip ((j), all ranks) and long (h)
+paths, each in launches_by_path; for K1's 12-row rows, the launches of
+that layout); the last line is
 {"ok": true, "device": {...}}.  Any failed check
 raises, so a failing run prints no result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -209,6 +237,21 @@ SHORT_SCAN_EVERY, SHORT_SCAN_KEEP = 37, 0.25
 # of the full ring at the end of phase (h), 0.2861 on an H100 (PERF.md)
 LONG_SUBMAP_SHAPE = (48, 4096)
 LONG_SUBMAP_MASKED_SHARE = 0.286
+ROWS12_SEED = 40  # K1's 12-row rows (phase 2)
+# phase (i): the weights' seed; one iteration through the kernels against
+# the same iteration through their plain versions: parameters within
+# WEIGHTED_ITER_TOL, a tenth of what the weights themselves move one
+# iteration by (1.1e-4 through the plain versions on the CPU) and ~9x the
+# gap measured on an H100 (4e-7 to 1.1e-6: K1's f32 moments in another
+# order); that effect, measured in the run, must reach WEIGHT_EFFECT_MIN,
+# so that the check tells a weighted iteration from an unweighted one
+WEIGHTED_SEED, WEIGHTED_ITER_TOL = 41, 1e-5
+WEIGHT_EFFECT_MIN = 5 * WEIGHTED_ITER_TOL
+# phase (j): the JAX package's dry-run map (__graft_entry__.py:66-96) on
+# 4 ranks sharing the card; the depth to cut first if the phase outgrows
+# its budget
+MULTICHIP_RANKS, MULTICHIP_SHAPE = 4, (32, 2048)
+MULTICHIP_TIMEOUT_S = 420  # the 4 ranks, start-up included
 
 
 def _bound(n_bytes, n_ops):
@@ -289,17 +332,21 @@ def _events_busy(events):
     return busy_us / 1000.0, kernels
 
 
-def _scene_problem(rng, n, dtab, device, masked=0.05):
+def _scene_problem(rng, n, dtab, device, masked=0.05, with_split=False):
     """Points on the synthetic room's surfaces, spread over a pose table:
     world = quat_rotate(q[tidx], xs) + t[tidx] exactly as the kernels read it;
-    a share `masked` of them masked."""
+    a share `masked` of them masked.  with_split: also the split channel of
+    their surfaces' normals (map.keyframes.normal_split_ids), as a seventh
+    value; the draws are the same either way."""
     import numpy as np
     import torch
 
     from dmsa_lidar_slam_tpu_torch.core import rotations as rot
     from dmsa_lidar_slam_tpu_torch.io.synthetic import sample_scene_points
+    from dmsa_lidar_slam_tpu_torch.map.keyframes import normal_split_ids
 
-    world = sample_scene_points(rng, n) + 0.01 * rng.standard_normal((n, 3))
+    world, normals = sample_scene_points(rng, n, return_normals=True)
+    world = world + 0.01 * rng.standard_normal((n, 3))
     tidx = rng.integers(0, dtab - 1, size=n)
     tidx[:: 9] = dtab - 1  # static points on the identity row
     aa = 0.1 * rng.standard_normal((dtab - 1, 3))
@@ -317,6 +364,8 @@ def _scene_problem(rng, n, dtab, device, masked=0.05):
     mask = torch.as_tensor(rng.uniform(size=n) > masked, device=device)
     rings = torch.as_tensor(rng.integers(0, 16, size=n), dtype=torch.int32, device=device)
     pts = rot.quat_rotate(tab_t[ti, 0:4], xs) + tab_t[ti, 4:7]
+    if with_split:
+        return pts, mask, rings, xs, ti, tab_t, normal_split_ids(torch.as_tensor(normals, device=device))
     return pts, mask, rings, xs, ti, tab_t
 
 
@@ -406,6 +455,7 @@ def _k1_build(args):
     exact = torch.equal(pk[12:15], pk_r[12:15]) and torch.equal(pk[0:3], pk_r[0:3])
     assert exact, "K1: xs / w / tidx / run-start rows must match exactly"
     sel = pk_r[6:12].abs().sum(0) > 0
+    assert bool(sel.any()), "K1: no valid cell to compare"
     assert float((pk[15] - pk_r[15]).abs().max()) <= 1e-6, "K1: 1/count rows differ"
     mu_err = float((pk[3:6][:, sel] - pk_r[3:6][:, sel]).abs().max())
     assert mu_err <= 2e-4, f"K1: cell means differ by {mu_err} m"
@@ -425,15 +475,22 @@ def _k1_row(results, calls, args_by_grid, label):
 
     builds = [_k1_build(args) for args in args_by_grid]
     args = args_by_grid[-1]
-    n, dtab = args[0].shape[0], args[7].shape[0]
+    n = args[0].shape[0]
+    split, obs = (tuple(args) + (None, None))[8:10]
+    rows12 = args[7] is None or obs is not None
     # bytes: points, mask, rings, local points, int64 table index, the
-    # split ids where given and the table in; the [16, n] packed rows out.
-    # operations: ~45 per point (transform, moments), ~200 per occupied
-    # cell (floored inverse)
+    # split ids and the observation weights where given, and the table in
+    # the compact layout (the 12-row one reads no table); the [16, n]
+    # packed rows out.  operations: ~45 per point (transform or load,
+    # moments), ~200 per occupied cell (floored inverse)
+    n_bytes = (101 + 4 * (split is not None) + 4 * (obs is not None)) * n + (0 if rows12 else 32 * args[7].shape[0])
     _record(results, calls, "build_packed", "dmsa_lidar_slam_tpu_torch/csrc/k1_build.cu",
             "dmsa_lidar_slam_tpu/ops/fused_residuals.py:875", max(e for _, e, _ in builds), 2e-2,
             lambda args=args: fr.build_packed(*args), 10, lambda args=args: fr.build_packed_ref(*args), 3,
-            label, (101 + 4 * (len(args) > 8)) * n + 32 * dtab, 45 * n + 200 * builds[-1][2])
+            label, n_bytes, 45 * n + 200 * builds[-1][2])
+    if rows12:  # its launches: the 12-row branch's count (cuda_lib.BRANCHES)
+        results[-1].update(layout="12-row", counter="build_rows12",
+                           replaces="dmsa_lidar_slam_tpu/ops/fused_residuals.py:875 (dpad = 0, :860-871)")
     return torch.cat([b[0] for b in builds], dim=1)
 
 
@@ -512,6 +569,26 @@ def long_rows(results, calls, device):
     _k3_row(results, calls, device, packed, tab, f"K=15 Dtab={dtab} M={m} long submap")
 
 
+def rows12_rows(results, calls, device):
+    """K1's 12-row layout at n = 28,672 over the 502-row table: observation
+    weights uniform in [0.5, 2] and the split channel of the surfaces'
+    normals, the world points given with the table (the weights select the
+    12-row layout), 5% masked and WINDOW_MASKED_SHARE masked, both grids;
+    the same checks and tolerances as the compact rows."""
+    import numpy as np
+    import torch
+
+    for masked, seed in ((0.05, ROWS12_SEED), (WINDOW_MASKED_SHARE, ROWS12_SEED + 1)):
+        rng = np.random.default_rng(seed)
+        n = 28672
+        pts, mask, rings, xs, ti, tab, split = _scene_problem(rng, n, 502, device, masked, with_split=True)
+        obs = torch.as_tensor(rng.uniform(0.5, 2.0, size=n), dtype=torch.float32, device=device)
+        g = torch.tensor(0.6, dtype=torch.float32, device=device)
+        arg_sets = [(pts, mask, rings, xs, ti, f * g, 10, tab, split, obs) for f in (1.0, 2.5)]
+        _k1_row(results, calls, arg_sets, f"n={n} 12-row, weights, split" + (
+            "" if masked == 0.05 else f", masked={masked}"))
+
+
 def kernel_checks(device):
     import numpy as np
     import torch
@@ -568,6 +645,11 @@ def kernel_checks(device):
     # K1-K3 at the long configuration's submap (phase h): 2 x 196,608
     # rows over 49 table rows with the split channel, P = 282
     long_rows(results, calls, device)
+
+    # K1's 12-row layout (phase i's): the window's shape with observation
+    # weights and the split channel, at 5% and at the window's real masked
+    # share, each from its own seed (the rows above keep their inputs)
+    rows12_rows(results, calls, device)
 
     # K4 at the two static-point queries of a bench scan
     for n_ref, n_q in ((20480, 12288), (8192, 20480)):
@@ -722,7 +804,7 @@ def pipeline_run(device, seq, data, ckpt_path):
         slam.process_scan(pts, stamps, rings)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    launches = dict(cuda_lib.LAUNCHES)
+    launches = cuda_lib.launch_counts()
     st, tr, _ = slam.all_poses()
     ate = ate_rmse(st, tr, seq)
     timed = sum(walls[10:])
@@ -739,8 +821,8 @@ def pipeline_run(device, seq, data, ckpt_path):
     print("  pipeline " + json.dumps(out), flush=True)
     events = slam.state.events.cpu().numpy()
     assert all(np.isfinite(events).ravel()), "non-finite event row"
-    for k, v in launches.items():
-        assert v > 0, f"kernel {k} never launched on the fused path"
+    for k in cuda_lib.LAUNCHES:
+        assert launches[k] > 0, f"kernel {k} never launched on the fused path"
     assert slam.kf_count >= 3, slam.kf_count
     assert slam.max_submap_span > 0, slam.max_submap_span
     assert ate <= ATE_GATE_M, f"ATE {ate} above {ATE_GATE_M}"
@@ -779,7 +861,7 @@ def host_run(device):
         slam = runner.run([], overrides=over, pipeline="host", device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(cuda_lib.LAUNCHES)
+        launches = cuda_lib.launch_counts()
         poses = np.loadtxt(os.path.join(out_dir, "Poses.txt"), ndmin=2)
         pcd, _ = load_pcd(os.path.join(out_dir, "PointCloud.pcd"))
         ate = ate_rmse(poses[:, 0], poses[:, 1:4], seq)
@@ -846,7 +928,7 @@ def fused_resume(device, seq, data, full, ckpt_path):
     feed(slam, data[SAVE_AT:])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(cuda_lib.LAUNCHES)
+    launches = cuda_lib.launch_counts()
     st, tr, _ = slam.all_poses()
     ate = ate_rmse(st, tr, seq)
     dpos, dori = _kf_positions_diff(slam, full)
@@ -857,8 +939,9 @@ def fused_resume(device, seq, data, full, ckpt_path):
     print("  fused resumed at scan %d %s" % (SAVE_AT, json.dumps(out)), flush=True)
     assert dpos <= FUSED_RESUME_TOL and dori <= FUSED_RESUME_TOL, (dpos, dori)
     assert ate <= ATE_GATE_M, f"resumed ATE {ate} above {ATE_GATE_M}"
-    for k, v in launches.items():
-        assert v > 0 or (k == "radius_neighbor_moments" and new_kf == 0), f"kernel {k} never launched on resume"
+    for k in cuda_lib.LAUNCHES:
+        assert launches[k] > 0 or (k == "radius_neighbor_moments" and new_kf == 0), \
+            f"kernel {k} never launched on resume"
     return launches
 
 
@@ -979,7 +1062,7 @@ def host_resume(device, data):
     feed(slam, data[HOST_SAVE_AT:HOST_CK_SCANS])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(cuda_lib.LAUNCHES)
+    launches = cuda_lib.launch_counts()
     assert slam.kf_map.count == full.kf_map.count and slam.kf_map.num_updates == full.kf_map.num_updates
     n = slam.kf_map.count
     dpos = float(abs(slam.kf_map.transl_w[:n] - full.kf_map.transl_w[:n]).max())
@@ -1122,7 +1205,7 @@ def long_phase(device):
         if len(walls) % 50 == 0:
             print(f"    scan {len(walls)}: {slam.kf_count} keyframes, deepest span {max(spans.values(), default=0)}, "
                   f"{1000.0 * sum(walls[-50:]) / 50:.1f} ms per scan over the last 50", flush=True)
-    launches, dense_j = dict(cuda_lib.LAUNCHES), cuda_lib.BRANCHES["gn_system_dense_j"]
+    launches, dense_j = cuda_lib.launch_counts(), cuda_lib.BRANCHES["gn_system_dense_j"]
     peak = torch.cuda.max_memory_allocated() / 2**30
     st, tr, _ = slam.all_poses()
     ate = ate_rmse(st, tr, seq) if len(st) >= 3 else float("nan")
@@ -1143,8 +1226,8 @@ def long_phase(device):
         peak_mem_gib=peak, ring_masked_share=masked, launches=launches, gn_system_dense_j=dense_j,
     )
     print("  long run " + json.dumps(out), flush=True)
-    for k, v in launches.items():
-        assert v > 0, f"kernel {k} never launched on the long path"
+    for k in cuda_lib.LAUNCHES:
+        assert launches[k] > 0, f"kernel {k} never launched on the long path"
     assert dense_j > 0, "K2's dense-J path never ran in the long run"
     assert slam.kf_count == sh.kf_cap, f"{slam.kf_count} keyframes at the end, not {sh.kf_cap}"
     assert slam.output.num_static_keyframes >= 1 and retired_at, "no keyframe retired to the output"
@@ -1171,7 +1254,7 @@ def _counted(fn):
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, dict(cuda_lib.LAUNCHES)
+    return out, time.perf_counter() - t0, cuda_lib.launch_counts()
 
 
 def dist_problem(shape, device):
@@ -1550,6 +1633,154 @@ def dist_phase(device, ckpt_path, results, calls):
     return g1_launches, dist_launches
 
 
+# --------------------------------------------------------------------------
+# phase (i): the weighted tabular optimize; phase (j): the multi-chip dry run
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """The optimizer's K1-K3 calls go to their plain versions (on the card)
+    inside."""
+    from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
+
+    saved = fr.build_packed, fr.gn_system, fr.cand_errors
+    fr.build_packed = fr.build_packed_ref
+    fr.gn_system = lambda tab, dtabs, packed, max_cells=None: fr.gn_system_ref(tab, dtabs, packed,
+                                                                               include_mean_term=False)
+    fr.cand_errors = fr.cand_errors_ref
+    try:
+        yield
+    finally:
+        fr.build_packed, fr.gn_system, fr.cand_errors = saved
+
+
+@contextlib.contextmanager
+def _recorded_builds(builds):
+    """Inside, each of the optimizer's K1 calls appends its arguments to
+    `builds` in _k1_row's order (points, mask, rings, xs, tidx, grid, min
+    points, table, split ids, weights)."""
+    from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
+
+    shipped = fr.build_packed
+
+    def recorded(*args, split_ids=None, obs_weight=None):
+        builds.append(tuple(args) + (split_ids, obs_weight))
+        return shipped(*args, split_ids=split_ids, obs_weight=obs_weight)
+
+    fr.build_packed = recorded
+    try:
+        yield
+    finally:
+        fr.build_packed = shipped
+
+
+def weighted_phase(device, results, calls):
+    """(i) The optimizer's tabular path with per-point observation weights
+    (K1's 12-row layout, then K2 and K3) on the keyframe problem of
+    bench_config's 16-keyframe submap (DIST_HASH_SHAPE, P = 90), its
+    forward returning weights uniform in [0.5, 2] (seed WEIGHTED_SEED), at
+    the pipelines' keyframe settings: the shipped call, counters zeroed
+    just before and read just after.  Then one iteration through the
+    kernels, whose K1 inputs (both grids) become a K1 row against the
+    plain version (_k1_row: K1's tolerances, bit for bit call to call);
+    that iteration against the same one through the plain versions on the
+    card, and against one without the weights.  Returns the shipped call's
+    launches."""
+    import numpy as np
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.dmsa import optimizer as opt
+    from dmsa_lidar_slam_tpu_torch.map import keyframes as kfm
+
+    data, p0, pt = dist_problem(DIST_HASH_SHAPE, device)
+    shapes = kfm.MapShapes(*DIST_HASH_SHAPE)
+    n = shapes.n_keyframes * shapes.n_pts_per_kf
+    obs = torch.as_tensor(np.random.default_rng(WEIGHTED_SEED).uniform(0.5, 2.0, size=n), dtype=torch.float32,
+                          device=device)
+    unweighted = kfm.make_forward(shapes, True, True, True)
+
+    def forward(params, d):
+        return unweighted(params, d)._replace(obs_weight=obs)
+
+    tabular = kfm.make_tabular(shapes, True, True)
+
+    def run(fwd, num_iter):
+        return opt.optimize(fwd, p0, data, dist_settings(num_iter), 0.25, tabular_fn=tabular)
+
+    res, wall, launches = _counted(lambda: run(forward, DIST_OPT["num_iter"]))
+    builds = []
+    with _recorded_builds(builds):
+        one = run(forward, 1)
+    assert len(builds) == 2 and all(b[9] is obs for b in builds), "(i): K1 not called once per grid with the weights"
+    _k1_row(results, calls, builds, f"n={n} Dtab={builds[0][7].shape[0]} 12-row, (i)'s own inputs")
+    with _plain_kernels():
+        one_plain = run(forward, 1)
+    diff = float((one.params - one_plain.params).abs().max())
+    effect = float((one.params - run(unweighted, 1).params).abs().max())
+    truth = kf_positions(data, pt, DIST_HASH_SHAPE)
+    e0 = position_rms(kf_positions(data, p0, DIST_HASH_SHAPE), truth)
+    e1 = position_rms(kf_positions(data, res.params, DIST_HASH_SHAPE), truth)
+    out = dict(keyframes=shapes.n_keyframes, points=n, params=p0.shape[0], iterations=int(res.num_iters),
+               stop_reason=int(res.stop_reason), gaussians=int(res.num_gaussians), kf_pos_rms_start_m=e0,
+               kf_pos_rms_m=e1, one_iteration_params_max_diff_vs_plain=diff, tolerance=WEIGHTED_ITER_TOL,
+               one_iteration_weight_effect=effect, weight_effect_min=WEIGHT_EFFECT_MIN, wall_s=wall,
+               launches=launches)
+    print("  (i) weighted tabular optimize " + json.dumps(out), flush=True)
+    assert bool(res.params.isfinite().all()), "non-finite parameters"
+    assert launches["build_rows12"] > 0, "K1's 12-row layout never ran in (i)"
+    _k123_launched(launches, "in (i)")
+    assert diff <= WEIGHTED_ITER_TOL, f"(i) one iteration {diff} from the plain versions'"
+    assert effect >= WEIGHT_EFFECT_MIN, f"(i) the weights move one iteration by {effect} only"
+    assert e1 < e0, f"(i) keyframe position RMS {e0} -> {e1}"
+    return launches
+
+
+def multichip_phase(device):
+    """(j) The multi-chip dry run (parallel/dryrun.py, the JAX package's
+    dryrun_multichip) on MULTICHIP_RANKS spawned ranks sharing the card
+    over gloo, on the flagship map (MULTICHIP_SHAPE): both backends within
+    0.02 m of the single-card optimizer and closer to the truth than the
+    start, no overflow (dryrun_multichip's own checks, on every rank), the
+    ranks bit-identical, K1-K3 launched on each rank (the spatial
+    backend).  Prints the spatial backend's collectives per iteration.
+    Returns the ranks' summed launches."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.parallel import dryrun, launch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.run_local_ranks(dryrun.dryrun_rank, MULTICHIP_RANKS, _build_dir("chip_smoke_multichip"),
+                                   *MULTICHIP_SHAPE, device=device, timeout_s=MULTICHIP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    assert [r["mesh"] for r in ranks] == [(MULTICHIP_RANKS, k, "gloo") for k in range(MULTICHIP_RANKS)]
+    same = all(torch.equal(r[k], ranks[0][k]) for r in ranks for k in ("params_hash", "params_spatial"))
+    coll = ranks[0]["collectives"]
+    out = {k: v for k, v in ranks[0].items() if not k.startswith("params_") and k not in ("collectives", "launches")}
+    out.update(ranks_bit_identical=same, wall_s_with_start_up=wall, rank_wall_s=[r["wall_s"] for r in ranks],
+               launches=[r["launches"] for r in ranks],
+               iterations={k: c["iterations"] for k, c in coll.items()})
+    print(f"  (j) dryrun_multichip, {MULTICHIP_RANKS} ranks " + json.dumps(out), flush=True)
+    for name in ("spatial", "hash"):
+        c = coll[name]
+        it = max(c["iterations"], 1)
+        print(f"  (j) {name} backend, collectives per iteration on rank 0 ({c['iterations']} iterations):", flush=True)
+        for r in c["rows"]:
+            print(f"    {r['primitive']:10s} {r['dtype']}[{'x'.join(map(str, r['shape']))}] "
+                  f"{r['calls'] / it:g} per iteration, {r['bytes']:,} bytes each", flush=True)
+        total = sum(r["calls"] * r["bytes"] for r in c["rows"]) / it
+        print(f"    total {sum(r['calls'] for r in c['rows']) / it:g} calls, {total:,.0f} bytes per iteration; "
+              f"set-up {[(r['primitive'], r['shape'], r['calls']) for r in c['setup']]}", flush=True)
+    assert same, "(j) the ranks' parameters differ"
+    total = {}
+    for r in ranks:
+        _k123_launched(r["launches"], f"on rank {r['mesh'][1]} in (j)")
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def main():
     import torch
 
@@ -1601,6 +1832,10 @@ def main():
     phase("(f) native PointCloud2 decode:", native_phase)
     paths["single_card_100kf"], paths["distributed"] = phase(
         "(g) the distributed keyframe adjustment (parallel/*):", dist_phase, device, ckpt, results, calls)
+    paths["weighted"] = phase("(i) the weighted tabular optimize (K1's 12-row layout):", weighted_phase, device,
+                              results, calls)
+    paths["multichip"] = phase(f"(j) the multi-chip dry run, {MULTICHIP_RANKS} ranks on the one card over gloo:",
+                               multichip_phase, device)
     paths["long"] = phase(f"(h) the long configuration, {LONG_SCANS} scans of {LONG_PTS:,} points:", long_phase,
                           device)
     print("CUDA kernels per call (torch.profiler):", flush=True)
@@ -1613,7 +1848,7 @@ def main():
     # (PERF.md section 6)
     phase(f"(a) {TRACE_SCANS} fused window scans under traceutil.capture:", trace_phase, device, data, ckpt)
     for r in results:
-        k = r["name"].split()[0]
+        k = r.pop("counter", r["name"].split()[0])
         r["launches"] = sum(p[k] for p in paths.values())
         r["launches_by_path"] = {name: p[k] for name, p in paths.items()}
     print(f"script wall: {time.perf_counter() - t_start:.1f} s", flush=True)

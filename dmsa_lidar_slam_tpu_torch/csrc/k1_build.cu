@@ -1,10 +1,15 @@
 // K1: Gaussian cell build over voxel-sorted points -> packed rows [16, n].
 //
 // Replaces the TPU kernels _build_fwd_kernel + _build_bwd_kernel of
-// dmsa_lidar_slam_tpu/ops/fused_residuals.py (compact path: world points
-// recomputed from (pose table, xs, tidx)).  The voxel sort between the key
-// kernel and the build stays one torch.sort, as the TPU package leaves it
-// to XLA.
+// dmsa_lidar_slam_tpu/ops/fused_residuals.py in both of their input
+// layouts (_build_decode): the compact one (dpad > 0: world points
+// recomputed from (pose table, xs, tidx), obs = w) and the 12-row one
+// (dpad = 0: the caller's world points, and a per-point observation weight
+// whose per-cell sum gives the rebalancing weight sum(obs) / n^2 instead of
+// n / n^2).  The two are instantiations of one build kernel (kRows12); the
+// key kernel, the sort and the finish are shared.  The voxel sort between
+// the key kernel and the build stays one torch.sort, as the TPU package
+// leaves it to XLA.
 //
 // What bounds it on this card: neither bytes nor operations but launches
 // and latency.  At the window shape (n = 28,672) the whole call moves
@@ -32,7 +37,10 @@
 //    (several independent loads in flight, so a run of 20,000 masked points
 //    costs ~80 steps), sums are warp-reduced with a fixed butterfly, and
 //    moments are taken about the run's first member (f32 cancellation at
-//    cell scale, as the TPU kernel).  The cell stats are written to every
+//    cell scale, as the TPU kernel).  The 12-row instantiation reads each
+//    member's world point through the sort order instead of transforming
+//    it (12 bytes instead of a table row and the local point), and adds
+//    its obs * w to a twelfth warp-reduced sum, in the same fixed order.  The cell stats are written to every
 //    member directly.  Each block writes its partial sums in block order:
 //    valid cells, raw cells (run starts of unmasked points) and the raw
 //    weight of its valid cells.
@@ -58,9 +66,24 @@ constexpr unsigned kInvalidKey = 0x7fffffffu;
 struct BlockPartial {
   int valid;   // valid cells
   int raw;     // run starts of unmasked points
-  float w;     // raw weight count / n^2 over valid cells
+  float w;     // raw weight sum(obs) / n^2 over valid cells
   int pad;
 };
+
+// World point of sorted member `o`: the caller's (12-row layout) or its
+// local point through its pose table row (compact layout).
+template <bool kRows12>
+__device__ __forceinline__ void member_point(const float* __restrict__ tab, const float* __restrict__ pts,
+                                             const float* __restrict__ xs, const long long* __restrict__ tidx,
+                                             int o, float& x, float& y, float& z) {
+  if constexpr (kRows12) {
+    x = pts[3 * o];
+    y = pts[3 * o + 1];
+    z = pts[3 * o + 2];
+  } else {
+    transform(load_pose(tab, (int)tidx[o]), xs[3 * o], xs[3 * o + 1], xs[3 * o + 2], x, y, z);
+  }
+}
 
 // voxel.voxel_coords: int32(floor(p / g)) + 2^14, with PyTorch's rounding
 __device__ __forceinline__ unsigned voxel_coord(float p, float g, bool divide) {
@@ -91,8 +114,13 @@ __global__ void __launch_bounds__(kKeyThreads)
   key[i] = (long long)(h + (unsigned long long)((long long)(int)lo + 2147483648LL));
 }
 
+// tab: the compact layout's pose table (null in the 12-row layout); pts,
+// obs: the 12-row layout's world points and observation weights (obs null:
+// 1 for every point).
+template <bool kRows12>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-    build_fwd(const float* __restrict__ tab, const float* __restrict__ xs,
+    build_fwd(const float* __restrict__ tab, const float* __restrict__ pts, const float* __restrict__ obs,
+              const float* __restrict__ xs,
               const long long* __restrict__ tidx, const int* __restrict__ rings,
               const unsigned char* __restrict__ mask, const long long* __restrict__ key_s,
               const long long* __restrict__ order, int n, int min_points, float floor,
@@ -117,14 +145,14 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
       const int o0 = (int)order[s];
       const float w0 = mask[o0] ? 1.f : 0.f;
       float o_x, o_y, o_z;
-      transform(load_pose(tab, (int)tidx[o0]), xs[3 * o0], xs[3 * o0 + 1], xs[3 * o0 + 2], o_x, o_y,
-                o_z);
+      member_point<kRows12>(tab, pts, xs, tidx, o0, o_x, o_y, o_z);
       o_x *= w0;
       o_y *= w0;
       o_z *= w0;
 
       float cnt = 0.f, s1x = 0.f, s1y = 0.f, s1z = 0.f;
       float m00 = 0.f, m01 = 0.f, m02 = 0.f, m11 = 0.f, m12 = 0.f, m22 = 0.f, rc = 0.f;
+      float so = 0.f;     // sum of obs * w (12-row layout)
       int len = 0;        // members of the run
       int ring_carry = 0; // ring of the last member before the current slice
       for (int c0 = s;; c0 += 32 * kUnroll) {
@@ -151,9 +179,9 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
           ring_carry = __shfl_sync(FULL_MASK, ring, 31);
           const float w = mask[oj] ? 1.f : 0.f;
           float px, py, pz;
-          transform(load_pose(tab, (int)tidx[oj]), xs[3 * oj], xs[3 * oj + 1], xs[3 * oj + 2], px, py,
-                    pz);
+          member_point<kRows12>(tab, pts, xs, tidx, oj, px, py, pz);
           const bool mem = in[u];
+          if constexpr (kRows12) so += mem ? (obs ? obs[oj] : 1.f) * w : 0.f;
           const float dx = mem ? (px * w - o_x) * w : 0.f;
           const float dy = mem ? (py * w - o_y) * w : 0.f;
           const float dz = mem ? (pz * w - o_z) * w : 0.f;
@@ -189,6 +217,7 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
       m12 = warp_sum(m12);
       m22 = warp_sum(m22);
       rc = warp_sum(rc);
+      if constexpr (kRows12) so = warp_sum(so);
 
       // cell statistics (every lane computes the same values)
       const float safe_n = fmaxf(cnt, 1.f);
@@ -201,7 +230,7 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
       const float validf = valid ? 1.f : 0.f;
       float info[6];
       floored_inverse6(cov, floor, info);
-      const float raw_w = cnt / (safe_n * safe_n);  // obs = w in the compact path
+      const float raw_w = (kRows12 ? so : cnt) / (safe_n * safe_n);  // obs = w in the compact layout
       const float lw = raw_w * validf;              // build_finish normalises
       const float mu_x = o_x + mx, mu_y = o_y + my, mu_z = o_z + mz;
       const float invn = validf / safe_n;
@@ -299,20 +328,39 @@ extern "C" int k1_voxel_keys(const float* pts, const unsigned char* mask, const 
   return (int)cudaGetLastError();
 }
 
-// partial: 16 bytes for each block of 256 sorted positions
-// (fused_residuals.K1_BLOCK_POSITIONS).
-extern "C" int k1_build(const float* tab, const float* xs, const long long* tidx, const int* rings,
-                        const unsigned char* mask, const long long* key_s, const long long* order,
-                        int n, int min_points, float floor, float* packed, void* partial,
-                        int* nvalid, long long* num_raw, cudaStream_t stream) {
+template <bool kRows12>
+int launch_build(const float* tab, const float* pts, const float* obs, const float* xs, const long long* tidx,
+                 const int* rings, const unsigned char* mask, const long long* key_s, const long long* order,
+                 int n, int min_points, float floor, float* packed, void* partial, int* nvalid,
+                 long long* num_raw, cudaStream_t stream) {
   BlockPartial* bp = static_cast<BlockPartial*>(partial);
   const int nparts = (n + 32 * kWarpsPerBlock - 1) / (32 * kWarpsPerBlock);
   if (nparts > 0)
-    build_fwd<<<nparts, 32 * kWarpsPerBlock, 0, stream>>>(tab, xs, tidx, rings, mask, key_s, order, n,
-                                                          min_points, floor, packed, bp);
+    build_fwd<kRows12><<<nparts, 32 * kWarpsPerBlock, 0, stream>>>(tab, pts, obs, xs, tidx, rings, mask, key_s,
+                                                                   order, n, min_points, floor, packed, bp);
   int err = (int)cudaGetLastError();
   if (err) return err;
   const int blocks = max(1, min(kFinishBlocks, (int)((6 * (long long)n + 1023) / 1024)));
   build_finish<<<blocks, kFinishThreads, 0, stream>>>(bp, nparts, n, packed, nvalid, num_raw);
   return (int)cudaGetLastError();
+}
+
+// partial: 16 bytes for each block of 256 sorted positions
+// (fused_residuals.K1_BLOCK_POSITIONS).  The compact layout.
+extern "C" int k1_build(const float* tab, const float* xs, const long long* tidx, const int* rings,
+                        const unsigned char* mask, const long long* key_s, const long long* order,
+                        int n, int min_points, float floor, float* packed, void* partial,
+                        int* nvalid, long long* num_raw, cudaStream_t stream) {
+  return launch_build<false>(tab, nullptr, nullptr, xs, tidx, rings, mask, key_s, order, n, min_points, floor,
+                             packed, partial, nvalid, num_raw, stream);
+}
+
+// The 12-row layout: pts [n, 3] the caller's world points, obs [n] the
+// observation weights or null (1 for every point).
+extern "C" int k1_build_rows12(const float* pts, const float* obs, const float* xs, const long long* tidx,
+                               const int* rings, const unsigned char* mask, const long long* key_s,
+                               const long long* order, int n, int min_points, float floor, float* packed,
+                               void* partial, int* nvalid, long long* num_raw, cudaStream_t stream) {
+  return launch_build<true>(nullptr, pts, obs, xs, tidx, rings, mask, key_s, order, n, min_points, floor, packed,
+                            partial, nvalid, num_raw, stream);
 }

@@ -46,6 +46,7 @@ class ForwardOut(NamedTuple):
     ring_ids: torch.Tensor  # [N]
     extra: torch.Tensor  # [E] additional residuals
     split_ids: Optional[torch.Tensor] = None  # [N] cell-split channel
+    obs_weight: Optional[torch.Tensor] = None  # [N] observation weight (getWeightOfPointSet); None: 1
 
 
 class TabularProblem(NamedTuple):
@@ -146,7 +147,7 @@ def _iteration(forward_fn, tabular_fn, params, data, settings, min_grid_size, st
         if factor > 1e-30:
             pk, nv, _ = fr.build_packed(
                 out.points, out.mask, out.ring_ids, xs, tidx, factor * min_grid_size,
-                settings.min_num_points_per_set, tab, split_ids=out.split_ids,
+                settings.min_num_points_per_set, tab, split_ids=out.split_ids, obs_weight=out.obs_weight,
             )
             packs.append(pk)
             nvs.append(nv)
@@ -210,7 +211,7 @@ def _build_all_cells(out, settings, min_grid_size):
             cells.append(
                 gaussians.build_cells(
                     out.points, out.mask, out.ring_ids, factor * min_grid_size,
-                    settings.min_num_points_per_set, split_ids=out.split_ids,
+                    settings.min_num_points_per_set, split_ids=out.split_ids, obs_weight=out.obs_weight,
                 )
             )
     return cells

@@ -11,7 +11,7 @@ Nothing here runs at import time: importing the package needs neither
 nvcc nor a card.  Each kernel wrapper adds one to LAUNCHES[name] where it
 launches its kernel, and nowhere else; BRANCHES counts the launches of a
 wrapper that took one of its kernel's paths (K2's dense-J path for
-P + 1 > 128).
+P + 1 > 128; K1's 12-row layout).
 """
 
 import ctypes
@@ -32,7 +32,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinf
 LAUNCHES = {
     "build_packed": 0, "gn_system": 0, "cand_errors": 0, "min_sq_dist": 0, "radius_neighbor_moments": 0,
 }
-BRANCHES = {"gn_system_dense_j": 0}
+BRANCHES = {"gn_system_dense_j": 0, "build_rows12": 0}
 BUILD_SECONDS = None  # wall time of the last nvcc build (None: none ran)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -42,6 +42,8 @@ _SIGNATURES = {
     # tab, xs, tidx, rings, mask, key_s, order, n, min_points, floor, packed, partial, nvalid,
     # num_raw, stream
     "k1_build": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
+    # pts, obs, then k1_build's arguments after tab
+    "k1_build_rows12": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
     "dmsa_chunk_positions": [],
     # m, P (K2) or K (K3), the scratch arrays' bytes (out)
     "k2_scratch_bytes": [_I, _I, _P],
@@ -68,6 +70,12 @@ def reset_launches():
     for counts in (LAUNCHES, BRANCHES):
         for k in counts:
             counts[k] = 0
+
+
+def launch_counts() -> dict:
+    """The kernel launch counters, with K1's 12-row launches as
+    "build_rows12" (BRANCHES)."""
+    return dict(LAUNCHES, build_rows12=BRANCHES["build_rows12"])
 
 
 def _nvcc():

@@ -7,7 +7,10 @@ table (the window's dense trajectory table or one row per keyframe; static
 points ride on a trailing identity row).
 
   K1 build_packed  voxel-key kernel -> torch.sort of the int64 keys -> cell
-                   build kernel + normalisation kernel -> packed [16, N]
+                   build kernel + normalisation kernel -> packed [16, N];
+                   the compact layout (world points from the pose table)
+                   or the 12-row one (the caller's world points and
+                   per-point observation weights)
   K2 gn_system     Hext = [J e]^T [J e] over the cell residuals, [P+1, P+1]:
                    chunk pieces staged, cells summed, Hext reduced, all in
                    3-4 kernel launches
@@ -143,24 +146,37 @@ def _k1_keys(points_w, mask, grid_size, split_ids, lib, stream):
     return key
 
 
-def build_packed(points_w, mask, ring_ids, xs, tidx, grid_size, min_points: int, tab, split_ids=None):
+def build_packed(points_w, mask, ring_ids, xs, tidx, grid_size, min_points: int, tab=None, split_ids=None,
+                 obs_weight=None):
     """One-resolution cell build straight to the packed kernel input.
 
-    points_w [N, 3] supply the voxel keys; the cell statistics use the
-    world points recomputed from (tab [Dtab, 8], xs, tidx) in f32, exactly
-    as K2/K3 recompute them.  Returns (packed [16, N], num_valid, num_raw),
-    the counts as device scalars (int32, int64).
+    points_w [N, 3] supply the voxel keys.  Two layouts, as the reference's
+    build kernel has (its _build_decode):
+      - compact, when `tab` [Dtab, 8] is given and obs_weight is None: the
+        cell statistics use the world points recomputed from (tab, xs,
+        tidx) in f32, exactly as K2/K3 recompute them, and obs = w;
+      - 12-row, otherwise: the statistics use points_w as given (even with
+        `tab`), and each member's obs is obs_weight * w (None: w), whose
+        per-cell mean feeds the rebalancing weight.
+    Returns (packed [16, N], num_valid, num_raw), the counts as device
+    scalars (int32, int64).
 
     On the card: the key kernel, one stable torch.sort of the keys, then the
     build kernel gathers through the sort order itself and a second kernel
-    normalises the weights (csrc/k1_build.cu).
+    normalises the weights (csrc/k1_build.cu; the 12-row layout is the build
+    kernel's second instantiation, counted in BRANCHES["build_rows12"]).
     """
     if not points_w.is_cuda:
-        return build_packed_ref(points_w, mask, ring_ids, xs, tidx, grid_size, min_points, tab, split_ids)
+        return build_packed_ref(points_w, mask, ring_ids, xs, tidx, grid_size, min_points, tab, split_ids,
+                                obs_weight)
     dev = points_w.device
     n = points_w.shape[0]
-    tabc = prep_tables(tab)
-    cuda_lib.require(tabc, "tab", _F32, device=dev)
+    rows12 = tab is None or obs_weight is not None
+    if obs_weight is not None:
+        cuda_lib.require(obs_weight, "obs_weight", _F32, (n,), dev)
+    if not rows12:
+        tabc = prep_tables(tab)
+        cuda_lib.require(tabc, "tab", _F32, device=dev)
     cuda_lib.require(xs, "xs", _F32, (n, 3), dev)
     cuda_lib.require(tidx, "tidx", torch.int64, (n,), dev)
     cuda_lib.require(ring_ids, "ring_ids", torch.int32, (n,), dev)
@@ -173,23 +189,29 @@ def build_packed(points_w, mask, ring_ids, xs, tidx, grid_size, min_points: int,
     # int64 words: num_raw, nvalid (int32), then 16 bytes per build block
     aux = torch.empty(2 + 2 * (-(-n // K1_BLOCK_POSITIONS)), dtype=torch.int64, device=dev)
     P = cuda_lib.ptr
-    cuda_lib.check(
-        lib.k1_build(P(tabc), P(xs), P(tidx), P(ring_ids), P(mask), P(key_s), P(order), n, int(min_points),
-                     float(COV_EIG_FLOOR), P(packed), aux.data_ptr() + 16,
-                     aux.data_ptr() + 8, P(aux), stream),
-        "k1_build",
-    )
+    tail = (P(xs), P(tidx), P(ring_ids), P(mask), P(key_s), P(order), n, int(min_points), float(COV_EIG_FLOOR),
+            P(packed), aux.data_ptr() + 16, aux.data_ptr() + 8, P(aux), stream)
+    if rows12:
+        cuda_lib.BRANCHES["build_rows12"] += 1
+        obs = None if obs_weight is None else P(obs_weight)
+        cuda_lib.check(lib.k1_build_rows12(P(points_w), obs, *tail), "k1_build_rows12")
+    else:
+        cuda_lib.check(lib.k1_build(P(tabc), *tail), "k1_build")
     return packed, aux.view(torch.int32)[2], aux[0]
 
 
-def build_packed_ref(points_w, mask, ring_ids, xs, tidx, grid_size, min_points: int, tab=None, split_ids=None):
+def build_packed_ref(points_w, mask, ring_ids, xs, tidx, grid_size, min_points: int, tab=None, split_ids=None,
+                     obs_weight=None):
     """Plain version of build_packed: gaussians.build_cells + pack_rows.
-    With `tab` the statistics use the table-recomputed world points (the
-    kernel's semantics); without it, points_w directly."""
-    pts = points_w if tab is None else _world_points(tab, xs, tidx) * mask[:, None].to(_F32)
+    In the compact layout (`tab` given, obs_weight None) the statistics use
+    the table-recomputed world points; otherwise points_w directly, with
+    the observation weights."""
+    compact = tab is not None and obs_weight is None
+    pts = _world_points(tab, xs, tidx) * mask[:, None].to(_F32) if compact else points_w
     aux = torch.cat([xs.to(_F32), tidx.to(_F32)[:, None]], dim=1)
     cells, aux_s = gaussians.build_cells(
-        pts, mask, ring_ids, grid_size, min_points, split_ids=split_ids, aux=aux, key_points=points_w
+        pts, mask, ring_ids, grid_size, min_points, split_ids=split_ids, aux=aux, key_points=points_w,
+        obs_weight=obs_weight,
     )
     packed = pack_rows(cells, aux_s[:, :3], aux_s[:, 3])
     return packed, cells.num_valid.to(torch.int32), cells.num_raw

@@ -43,13 +43,17 @@ def _outer6(v):
 
 
 def build_cells(
-    points, mask, ring_ids, grid_size, min_points: int, split_ids=None, aux=None, key_points=None
+    points, mask, ring_ids, grid_size, min_points: int, split_ids=None, aux=None, key_points=None, obs_weight=None
 ):
     """Bin points and compute accepted Gaussian cells at one resolution.
 
     aux optional [N, A] per-point payload returned in sorted order: then
     the result is (CellSet, aux_sorted).  key_points (default: points)
-    supply the voxel keys when the statistics use other coordinates."""
+    supply the voxel keys when the statistics use other coordinates.
+    obs_weight optional [N] per-point observation weight: each member's
+    obs is obs_weight * w (None: obs = w), and the per-cell mean of obs
+    feeds the rebalancing weight (getWeightOfPointSet,
+    OptimizablePointSet.h:52)."""
     n = points.shape[0]
     kp = points if key_points is None else key_points
     rb = voxel.bin_runs(kp, mask, grid_size, channel=split_ids)
@@ -60,8 +64,9 @@ def build_cells(
 
     ring_prev = torch.cat([rings_s[:1], rings_s[:-1]])
     ringdiff = ((~new_cell) & (rings_s != ring_prev)).to(points.dtype)
+    obs_s = w_s if obs_weight is None else obs_weight.to(points.dtype)[order] * w_s
 
-    vals1 = torch.cat([w_s[:, None], pts_s * w_s[:, None], ringdiff[:, None], w_s[:, None]], dim=1)
+    vals1 = torch.cat([w_s[:, None], pts_s * w_s[:, None], ringdiff[:, None], obs_s[:, None]], dim=1)
     sums1 = voxel.run_sums(vals1, start)
     count_pp = sums1[:, 0]
     safe_n = torch.clamp(count_pp, min=1.0)

@@ -17,6 +17,8 @@ all of its host's devices.
 import datetime
 import logging
 import os
+import tempfile
+import time
 from typing import Optional
 
 import torch
@@ -91,3 +93,54 @@ def global_keyframe_mesh(axis_name: str = "data", n_points: Optional[int] = None
     if n_use < pmesh.world_size():
         log.warning("distributed keyframe opt uses %d/%d ranks", n_use, pmesh.world_size())
     return pmesh.make_mesh(axis_name, ranks=range(n_use))
+
+
+# one spawned run of ranks (Ranks), start-up included
+RANKS_TIMEOUT_S = 600.0
+
+
+def _local_rank_main(rank, world, store_dir, device, fn, args):
+    torch.set_num_threads(1)
+    device = initialize_distributed(backend="gloo", init_method=f"file://{store_dir}/store", world_size=world,
+                                    rank=rank, device=device)
+    try:
+        torch.save(fn(rank, world, device, *args), os.path.join(store_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+class Ranks:
+    """fn(rank, world, device, *args) on `world` processes of this host,
+    started at once with the spawn method and joined over gloo through a
+    file store in a new directory under work_dir (no TCP port), all on
+    `device` (ranks on one card share it), one torch thread each.  fn must
+    be a module-level function; it may return anything torch.save takes.
+    The caller may work meanwhile, then reads results()."""
+
+    def __init__(self, fn, world: int, work_dir, *args, device="cuda", timeout_s: float = RANKS_TIMEOUT_S):
+        import torch.multiprocessing as mp
+
+        self.dir = tempfile.mkdtemp(prefix=f"{fn.__name__}_", dir=str(work_dir))
+        self.world, self.timeout_s = world, timeout_s
+        self.deadline = time.monotonic() + timeout_s
+        self.ctx = mp.start_processes(_local_rank_main, args=(world, self.dir, str(device), fn, args), nprocs=world,
+                                      join=False, start_method="spawn")
+
+    def results(self) -> list:
+        """The ranks' values in rank order.  Raises if a rank failed (the
+        others are stopped), or if the ranks have not finished by the
+        deadline; no rank outlives the call."""
+        try:
+            while not self.ctx.join(timeout=max(1.0, self.deadline - time.monotonic())):
+                if time.monotonic() >= self.deadline:
+                    raise TimeoutError(f"{self.world} ranks did not finish within {self.timeout_s} s")
+        finally:
+            for p in self.ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        return [torch.load(os.path.join(self.dir, f"rank{r}.pt"), weights_only=False) for r in range(self.world)]
+
+
+def run_local_ranks(fn, world: int, work_dir, *args, device="cuda", timeout_s: float = RANKS_TIMEOUT_S) -> list:
+    """Ranks(...).results(): the blocking form."""
+    return Ranks(fn, world, work_dir, *args, device=device, timeout_s=timeout_s).results()

@@ -15,8 +15,19 @@ all of them on CPU tensors, and all_reduce and broadcast on CUDA tensors
 tensors: with backend "gloo" a CUDA all_to_all is staged through host
 memory here.  The staging follows the mesh's backend, which the caller
 named when it created the process group.
+
+The collective counter: every call of psum, pmin, pmax, all_to_all,
+replicated and broadcast_from_mesh that reaches torch.distributed adds one
+to COLLECTIVES[(scope, primitive, payload shape, dtype)]; a one-rank mesh's
+identity sends nothing and counts nothing.  The scope is the innermost
+count_scope the call runs in (the optimizers put each Gauss-Newton
+iteration in "iteration"), None outside any; SCOPES counts how often each
+scope was entered.  reset_collectives zeroes both, collective_rows reads
+them with the bytes of one call (the payload as the caller hands it over).
+What is sent does not change.
 """
 
+import contextlib
 import dataclasses
 import logging
 from typing import NamedTuple, Optional, Sequence, Tuple
@@ -54,6 +65,46 @@ class Mesh:
 
 # the one-rank mesh with no process group: every collective is the identity
 ONE_RANK = Mesh(group=None, ranks=(0,))
+
+COLLECTIVES = {}  # (scope, primitive, shape, dtype) -> calls
+SCOPES = {}  # scope -> times entered
+_scope = [None]
+
+
+def reset_collectives():
+    COLLECTIVES.clear()
+    SCOPES.clear()
+
+
+@contextlib.contextmanager
+def count_scope(name: str):
+    """Count the collectives issued inside under scope `name`."""
+    outer = _scope[0]
+    _scope[0] = name
+    SCOPES[name] = SCOPES.get(name, 0) + 1
+    try:
+        yield
+    finally:
+        _scope[0] = outer
+
+
+def _count(primitive: str, x: torch.Tensor):
+    key = (_scope[0], primitive, tuple(x.shape), str(x.dtype).replace("torch.", ""))
+    COLLECTIVES[key] = COLLECTIVES.get(key, 0) + 1
+
+
+def collective_rows(scope=None):
+    """The counted collectives of `scope` as dicts (primitive, shape, dtype,
+    calls, bytes: of one call), most calls first."""
+    rows = []
+    for (sc, prim, shape, dtype), calls in COLLECTIVES.items():
+        if sc == scope:
+            itemsize = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+            numel = 1
+            for d in shape:
+                numel *= d
+            rows.append(dict(primitive=prim, shape=shape, dtype=dtype, calls=calls, bytes=numel * itemsize))
+    return sorted(rows, key=lambda r: (-r["calls"], r["primitive"], r["shape"]))
 
 
 class Mesh2D(NamedTuple):
@@ -131,6 +182,7 @@ def replicated(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """`x` as the mesh's first rank holds it, on every member."""
     if mesh.group is None:
         return x
+    _count("replicated", x)
     out = x.clone().contiguous()
     dist.broadcast(out, src=mesh.ranks[0], group=mesh.group)
     return out
@@ -143,6 +195,7 @@ def broadcast_from_mesh(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     calls this."""
     if mesh.size == world_size():
         return x
+    _count("broadcast_from_mesh", x)
     out = x.clone().contiguous()
     dist.broadcast(out, src=mesh.ranks[0])
     return out
@@ -152,9 +205,10 @@ def axis_index(mesh: Mesh) -> int:
     return mesh.rank
 
 
-def _all_reduce(x: torch.Tensor, mesh: Mesh, op) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, mesh: Mesh, op, primitive: str) -> torch.Tensor:
     if mesh.group is None:
         return x
+    _count(primitive, x)
     out = x.clone().contiguous()
     dist.all_reduce(out, op=op, group=mesh.group)
     return out
@@ -163,15 +217,15 @@ def _all_reduce(x: torch.Tensor, mesh: Mesh, op) -> torch.Tensor:
 def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Sum over the mesh, the same bits on every member (ring all-reduce:
     each chunk is reduced once and then copied to every rank)."""
-    return _all_reduce(x, mesh, dist.ReduceOp.SUM)
+    return _all_reduce(x, mesh, dist.ReduceOp.SUM, "psum")
 
 
 def pmin(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    return _all_reduce(x, mesh, dist.ReduceOp.MIN)
+    return _all_reduce(x, mesh, dist.ReduceOp.MIN, "pmin")
 
 
 def pmax(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    return _all_reduce(x, mesh, dist.ReduceOp.MAX)
+    return _all_reduce(x, mesh, dist.ReduceOp.MAX, "pmax")
 
 
 def all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -181,6 +235,7 @@ def all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         return x
     if x.shape[0] != mesh.size:
         raise ValueError(f"all_to_all: leading axis {x.shape[0]}, mesh size {mesh.size}")
+    _count("all_to_all", x)
     src = x.contiguous()
     if src.dtype == torch.bool:
         src = src.view(torch.uint8)

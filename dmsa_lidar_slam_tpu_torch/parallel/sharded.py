@@ -283,10 +283,11 @@ def sharded_optimize(
     ncells = torch.zeros((), dtype=torch.int64, device=params0.device)
     iters = 0
     for _ in range(num_iter):
-        p, improved, err, _, step_norm, ncells = _gn_iteration(
-            transform_fn, params, local_pts, mask, rings, aux, grid_sizes, min_points, table_size, lambda_diag,
-            step_length, max_step, mesh, extra_fn, line_search_fracs,
-        )
+        with pmesh.count_scope("iteration"):
+            p, improved, err, _, step_norm, ncells = _gn_iteration(
+                transform_fn, params, local_pts, mask, rings, aux, grid_sizes, min_points, table_size,
+                lambda_diag, step_length, max_step, mesh, extra_fn, line_search_fracs,
+            )
         too_few = ncells < min_num_gaussians
         params = torch.where(too_few, params, p)
         iters += 1

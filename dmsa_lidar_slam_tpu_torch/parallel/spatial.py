@@ -15,7 +15,8 @@ the mesh size).  Per Gauss-Newton iteration:
      build K1 runs unchanged on the received rows: exact cells, no hash
      table, no owner election;
   3. the only other collectives are the [P+1, P+1] normal-equation block of
-     K2 and the K line-search errors of K3 (one psum each), and two counts.
+     K2 and the K line-search errors of K3 (one psum each), and the two
+     counts (one int32[2] psum).
 
 The all_to_all uses fixed-capacity buckets, `cap` rows per (sender,
 receiver) pair, cap_factor x the balanced share.  Points overflowing a
@@ -131,9 +132,11 @@ def _cached_spatial_optimize(
                 min_points, tab, split_ids=r_split,
             )
             packs.append(pk)
-            counts.append(torch.stack([nv.to(torch.int64), ov.to(torch.int64)]))
+            counts.append(torch.stack([nv.to(torch.int32), ov.to(torch.int32)]))
         packed = torch.cat(packs, dim=1)
-        n_cells, overflow = pmesh.psum(torch.stack(counts).sum(0), mesh)
+        # the cell count and the overflow in one int32 psum (the reference's
+        # two int32 psums, 8 bytes in one call)
+        n_cells, overflow = pmesh.psum(torch.stack(counts).sum(0, dtype=torch.int32), mesh).to(torch.int64)
 
         # normal equations: the local block over owned cells, one psum
         max_cells = packed.shape[1] // max(1, min_points) + len(packs)
@@ -169,8 +172,9 @@ def _cached_spatial_optimize(
         err = torch.tensor(float("inf"), dtype=params0.dtype, device=params0.device)
         n_cells = overflow = max_overflow = torch.zeros((), dtype=torch.int64, device=params0.device)
         for _ in range(num_iter):
-            new_params, done_now, improved, err, n_cells, overflow = iteration(
-                params, xs, mask, rings, tidx, nrm, aux, grids)
+            with pmesh.count_scope("iteration"):
+                new_params, done_now, improved, err, n_cells, overflow = iteration(
+                    params, xs, mask, rings, tidx, nrm, aux, grids)
             max_overflow = torch.maximum(max_overflow, overflow)
             if done:  # frozen: every later iteration is this one again
                 break

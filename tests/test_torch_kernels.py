@@ -13,7 +13,9 @@ version's result and launches nothing, and the plain statement of K2's
 chunk/piece cut (fused_residuals.gn_system_pieces_ref) is held against the
 plain per-cell normal equations, as is K3's (cand_errors_pieces_ref)
 against the plain candidate errors.  On the card, K1's keys are checked bit
-for bit against voxel.voxel_keys on voxel boundaries, K1-K5 against
+for bit against voxel.voxel_keys on voxel boundaries, K1's 12-row layout
+(observation weights, or no pose table) against its plain version, its
+all-ones weight against no weight bit for bit, K1-K5 against
 themselves from one call to the next, K3 at 1 and 16 candidates and each
 candidate's error independent of their number, K4 at ragged counts, a
 large masked share and with no valid reference, K5 at ragged counts, one
@@ -180,6 +182,80 @@ def test_k1_k3_match_plain_on_card(giant_cell):
     np.testing.assert_allclose(nn(fr.cand_errors(tabs, pk)), nn(fr.cand_errors_ref(tabs, pk)), rtol=2e-4)
     for k in ("build_packed", "gn_system", "cand_errors"):
         assert cuda_lib.LAUNCHES[k] == before[k] + 1, k
+
+
+def _rows12_args(seed, layout, giant_cell, dev=None):
+    """build_packed's arguments and keywords for K1's 12-row layout: world
+    points offset from the table's (so a build that read the table would
+    differ), observation weights uniform in [0.5, 2] and a split channel;
+    layout "weights+tab" (weights select the 12-row layout although a
+    table is given), "weights" or "no_tab" (no table, no weights)."""
+    args, _, _ = _problem(seed, giant_cell=giant_cell)
+    rng = np.random.default_rng(seed + 100)
+    n = args[0].shape[0]
+    world = args[0] + torch.as_tensor(0.01 * rng.standard_normal((n, 3)), dtype=torch.float32)
+    obs = torch.as_tensor(rng.uniform(0.5, 2.0, size=n), dtype=torch.float32)
+    split = torch.as_tensor(rng.integers(0, 4, size=n), dtype=torch.int32)
+    args = (world,) + args[1:7] + ((args[7],) if layout == "weights+tab" else (None,))
+    kw = dict(split_ids=split, obs_weight=None if layout == "no_tab" else obs)
+    if dev is not None:
+        args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
+        kw = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    return args, kw
+
+
+def test_rows12_wrapper_takes_plain_version_on_cpu():
+    """K1's 12-row layout on CPU tensors: its plain version's result, no
+    launch and no branch counted."""
+    cuda_lib.reset_launches()
+    for layout in ("weights+tab", "weights", "no_tab"):
+        args, kw = _rows12_args(8, layout, giant_cell=True)
+        a, b = fr.build_packed(*args, **kw), fr.build_packed_ref(*args, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), layout
+    assert all(v == 0 for v in cuda_lib.LAUNCHES.values())
+    assert all(v == 0 for v in cuda_lib.BRANCHES.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["weights+tab", "weights", "no_tab"])
+@pytest.mark.parametrize("giant_cell", [False, True])
+def test_k1_rows12_matches_plain_on_card(giant_cell, layout):
+    """K1's 12-row layout against its plain version at K1's tolerances,
+    bit for bit from one call to the next, counted as a launch of K1 and a
+    12-row branch each; the rows it feeds give K3's errors within 2e-4."""
+    require_cuda()
+    dev = torch.device("cuda")
+    args, kw = _rows12_args(9, layout, giant_cell, dev)
+    before, b12 = cuda_lib.LAUNCHES["build_packed"], cuda_lib.BRANCHES["build_rows12"]
+    a, again = fr.build_packed(*args, **kw), fr.build_packed(*args, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, again))
+    assert cuda_lib.LAUNCHES["build_packed"] == before + 2 and cuda_lib.BRANCHES["build_rows12"] == b12 + 2
+    pk, nv, nr = a
+    pk_r, nv_r, nr_r = fr.build_packed_ref(*args, **kw)
+    assert int(nv) == int(nv_r) and int(nr) == int(nr_r)
+    _cmp_packed(nn(pk), nn(pk_r))
+    _, _, tabs = _problem(9, giant_cell=giant_cell)
+    tabs = tabs.to(dev)
+    np.testing.assert_allclose(nn(fr.cand_errors(tabs, pk)), nn(fr.cand_errors_ref(tabs, pk_r)), rtol=2e-4)
+
+
+@pytest.mark.gpu
+def test_k1_rows12_unit_weight_bits_on_card():
+    """On the card, a weight of 1 everywhere gives the unweighted 12-row
+    build's bits, with or without a table; the compact layout (a table, no
+    weights) counts no 12-row branch."""
+    require_cuda()
+    dev = torch.device("cuda")
+    args, kw = _rows12_args(10, "no_tab", True, dev)
+    ones = torch.ones(args[0].shape[0], dtype=torch.float32, device=dev)
+    none12 = fr.build_packed(*args, **kw)
+    tab = _problem(10, giant_cell=True)[0][7].to(dev)
+    for t in (None, tab):
+        ones12 = fr.build_packed(*args[:7], t, split_ids=kw["split_ids"], obs_weight=ones)
+        assert all(torch.equal(x, y) for x, y in zip(none12, ones12))
+    b12 = cuda_lib.BRANCHES["build_rows12"]
+    fr.build_packed(*args[:7], tab, split_ids=kw["split_ids"])
+    assert cuda_lib.BRANCHES["build_rows12"] == b12
 
 
 @pytest.mark.gpu

@@ -1,69 +1,39 @@
 """Run a function on N gloo ranks on the CPU, for the port's distributed
-tests (tests/test_torch_parallel_*.py), and the rank functions they run.
+tests (tests/test_torch_parallel_*.py and the dry-run and collective
+tests), and the rank functions they run.
 
-Each rank is a process started with the spawn method.  It imports torch,
-the port and this module only (never jax, never tests/conftest.py), joins
-a gloo process group through a file store in the caller's temporary
-directory (no TCP port, so tests under pytest-xdist cannot race), runs
-fn(rank, world, *args) and saves what it returns with torch.save.
-`Ranks` joins them with a timeout of its own, so a rank that hangs fails
-its test instead of the suite; a rank that raises fails the run, and the
-others are stopped.  Inputs are numpy arrays made by the caller, so every
-rank sees the same problem.  Tier-1 runs pytest with several workers, so
-torch keeps to one thread here and in every rank.
+The ranks are the port's own (parallel/launch.py's Ranks, which the
+multi-chip tools and chip_smoke.py use too): processes started with the
+spawn method, each importing torch, the port and this module only (never
+jax, never tests/conftest.py), joined over gloo through a file store in
+the caller's temporary directory (no TCP port, so tests under
+pytest-xdist cannot race), running fn(rank, world, device, *args) with
+device "cpu".  Ranks joins them with a timeout of its own, so a rank that
+hangs fails its test instead of the suite; a rank that raises fails the
+run, and the others are stopped.  Inputs are numpy arrays made by the
+caller, so every rank sees the same problem.  Tier-1 runs pytest with
+several workers, so torch keeps to one thread here and in every rank.
 """
 
 import dataclasses
-import datetime
+import functools
 import os
-import tempfile
-import time
 
 import numpy as np
 import torch
-import torch.multiprocessing as mp
+
+from dmsa_lidar_slam_tpu_torch.parallel import launch
 
 torch.set_num_threads(1)
 
 TIMEOUT_S = 150.0  # one multi-rank run, start-up included
-GROUP_TIMEOUT_S = 60.0  # a rank left waiting in a collective raises
 
 
-def _rank_main(rank, world, store_dir, fn, args):
-    import torch.distributed as dist
-
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{store_dir}/store", rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
-    try:
-        torch.save(fn(rank, world, *args), os.path.join(store_dir, f"rank{rank}.pt"))
-    finally:
-        dist.destroy_process_group()
-
-
-class Ranks:
-    """`world` ranks running fn(rank, world, *args), started at once; the
-    caller may work meanwhile, then reads results()."""
-
-    def __init__(self, fn, world: int, tmp_dir, *args, timeout: float = TIMEOUT_S):
-        self.dir = tempfile.mkdtemp(prefix=f"{fn.__name__}_", dir=str(tmp_dir))
-        self.deadline = time.monotonic() + timeout
-        self.world = world
-        self.ctx = mp.start_processes(_rank_main, args=(world, self.dir, fn, args), nprocs=world, join=False,
-                                      start_method="spawn")
-
-    def results(self) -> list:
-        """Each rank's return value, in rank order."""
-        while not self.ctx.join(timeout=max(0.0, self.deadline - time.monotonic())):
-            if time.monotonic() >= self.deadline:
-                for p in self.ctx.processes:
-                    p.kill()
-                raise TimeoutError(f"{self.world} ranks did not finish within their time limit")
-        return [torch.load(os.path.join(self.dir, f"rank{r}.pt"), weights_only=False) for r in range(self.world)]
-
-
-def run_ranks(fn, world: int, tmp_dir, *args, timeout: float = TIMEOUT_S) -> list:
-    return Ranks(fn, world, tmp_dir, *args, timeout=timeout).results()
+# `world` CPU ranks running fn(rank, world, "cpu", *args): Ranks starts
+# them and the caller may work meanwhile, then reads results(); run_ranks
+# waits for them
+Ranks = functools.partial(launch.Ranks, device="cpu", timeout_s=TIMEOUT_S)
+run_ranks = functools.partial(launch.run_local_ranks, device="cpu", timeout_s=TIMEOUT_S)
 
 
 # --------------------------------------------------------------------------
@@ -158,7 +128,7 @@ def as_port(data: dict, device="cpu"):
 # --------------------------------------------------------------------------
 
 
-def shuffle_and_elect(rank, world, pts, mask, grid, small_cap, table_size):
+def shuffle_and_elect(rank, world, device, pts, mask, grid, small_cap, table_size):
     """On this rank's shard of (pts, mask), with the grid as an f32 scalar:
     the owner shuffle of the points themselves over the full mesh and over
     the 2-rank subgroup of ranks 0 and 1 at the default bucket cap
@@ -191,7 +161,7 @@ def shuffle_and_elect(rank, world, pts, mask, grid, small_cap, table_size):
     return out
 
 
-def spatial_cases(rank, world, cases):
+def spatial_cases(rank, world, device, cases):
     """The spatial optimizer on each case: {name: (data, params0,
     use_split, kwargs)} -> {name: (params, err, cells, overflow)}; and, for
     the first case, the keys of the cells each rank builds (voxel key and
@@ -230,7 +200,7 @@ def spatial_cases(rank, world, cases):
     return out
 
 
-def hash_optimize(rank, world, data, params0, runs):
+def hash_optimize(rank, world, device, data, params0, runs):
     """The hash backend (keyframe_dist.distributed_keyframe_optimize) over
     the mesh of the ranks among which the points divide evenly, once per
     keyword set in `runs`; the ranks left out take each result by
@@ -251,7 +221,7 @@ def hash_optimize(rank, world, data, params0, runs):
     return mesh.size, out
 
 
-def pipeline_runs(rank, world, config: dict, n_scans: int, pts: int, runner_overrides: dict, out_dirs):
+def pipeline_runs(rank, world, device, config: dict, n_scans: int, pts: int, runner_overrides: dict, out_dirs):
     """FusedDmsaSlam and DmsaSlam with the flag on, over n_scans of the
     port's test sequence (seed 11) on every rank, then the CLI runner with
     the flag over a bag, each rank told to write into out_dirs[rank].
@@ -306,3 +276,4 @@ def config_dict(cfg) -> dict:
     """A Config of either package as the port's Config's keyword arguments
     (a rank must not unpickle the reference's Config: that imports jax)."""
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
