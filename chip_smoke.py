@@ -124,7 +124,19 @@ printed on its own lines and none of them caught:
      reached 17 and the first retirement, the submap solves (all, and
      after the first retirement), wall ms per scan from scan 10 on and on
      keyframe scans, the realtime ratio, peak memory, the ring's masked
-     share at the end, the phase's wall;
+     share at the end, the phase's wall; and, from chip_smoke.StepRecorder
+     (each step's candidates, overlap counts and min_related, read after
+     the scan's timed region), why each keyframe step after the first
+     retirement ran no submap solve;
+  (k) the host pipeline at the long configuration: DmsaSlam(long_config())
+     on the card over the first LONG_HOST_SCANS records of (h)'s data (one
+     generation serves both): 131,072 raw points over 128 rings, the
+     48-keyframe ring, 4,096-point keyframe clouds, no submap cap, the
+     structured optimizer.  Counters zeroed just before and read just
+     after: K4 and K5 launched, >= 3 keyframes, at least one submap solve
+     (record_submaps), ATE <= 0.05 m over the poses so far, a finite
+     trajectory.  Printed: wall ms per scan from scan 10 on and on keyframe
+     scans, the launches, peak memory, the solves and the deepest span;
   5. the CUDA kernels one call of each kernel row runs on the card
      (device_launches) and the card's busy time for it (device_ms), from
      torch.profiler over one call after a warm-up, those inside torch ops
@@ -141,15 +153,20 @@ printed on its own lines and none of them caught:
 
 Depth cut to make room for (h): (a) traces one fused scan (was 3: one
 scan holds every check of the phase, and on an H100 (a) takes ~85 s with
-one scan against ~3.5 min with three).  No other phase is cut; (i) and
-(j) take ~5 s and ~35 s on an H100, and (j)'s map (MULTICHIP_SHAPE) is
-the depth to cut first should the script outgrow its time.
+one scan against ~3.5 min with three).  (k) is cut in depth to
+LONG_HOST_SCANS of the long run's 310 scans (the host pipeline takes
+~2 s per scan there): 11 of the ring's 48 keyframes, spans of 2-4; the
+ring's filling and retirement, and the second lap from scan ~100 on,
+where (h)'s spans reach 26, are left out.  No other phase is cut; (i) and (j)
+take ~5 s and ~35 s on an H100, and (j)'s map (MULTICHIP_SHAPE) and the
+host bench phase's HOST_SCANS are the depths to cut first should the
+script outgrow its time.
 
 The line before the last is a JSON object with one entry per kernel and
 shape (launches: the sum over the fused, fused_resumed, host,
 host_resumed, single_card_100kf (g1), distributed ((g2), and (g3) and
-(g5) on both ranks), weighted (i), multichip ((j), all ranks) and long (h)
-paths, each in launches_by_path; for K1's 12-row rows, the launches of
+(g5) on both ranks), weighted (i), multichip ((j), all ranks), long (h)
+and host_long (k) paths, each in launches_by_path; for K1's 12-row rows, the launches of
 that layout); the last line is
 {"ok": true, "device": {...}}.  Any failed check
 raises, so a failing run prints no result.
@@ -237,6 +254,11 @@ SHORT_SCAN_EVERY, SHORT_SCAN_KEEP = 37, 0.25
 # of the full ring at the end of phase (h), 0.2861 on an H100 (PERF.md)
 LONG_SUBMAP_SHAPE = (48, 4096)
 LONG_SUBMAP_MASKED_SHARE = 0.286
+# phase (k): DmsaSlam(long_config()) over the first LONG_HOST_SCANS records
+# of phase (h)'s data: 60 took 117.3 s on an H100 (2.2 s per scan from
+# scan 10 on, 3.9 s on keyframe scans; PERF.md), within the phase's ~150 s
+# and the script's ~850 s
+LONG_HOST_SCANS = 60
 ROWS12_SEED = 40  # K1's 12-row rows (phase 2)
 # phase (i): the weights' seed; one iteration through the kernels against
 # the same iteration through their plain versions: parameters within
@@ -1167,14 +1189,96 @@ def span_summary(spans, retired_at):
                                                          if first_ret is not None and k >= first_ret))
 
 
-def long_phase(device):
-    """Phase (h): FusedDmsaSlam(long_config()) on the card over LONG_SCANS
-    scans of long_sequence(LONG_SEED), LONG_PTS raw points over LONG_RINGS
-    rings, with bench.py's stressors; the data generated before the run.
-    Counters zeroed just before and read just after.  Each step's event
-    row is read after its scan's timed region, for the scan at which the
-    submap span first reaches LONG_MIN_SPAN and the first retirement.
-    Returns the launches."""
+class StepRecorder:
+    """Each step's keyframe-map decision in FusedDmsaSlam, from the calls
+    its step makes to dmap.closest_candidates and sp.select_static_points
+    (wrapped while `installed`; what the step computes does not change) and
+    from the step's event row.  The wrappers keep copies on the state's
+    device; the host reads them in `collect`, after the step.
+
+    A record: the ring count before the step, the candidate ids, valid
+    flags and overlap counts, min_related (the smallest candidate id with
+    an overlap, -1 with none), min_related_adj (one less once the ring is
+    full: the oldest keyframe retires with the next keyframe), keyframe,
+    run_submap, span, and for a keyframe step without a solve, why."""
+
+    DECISION = ("count", "ids", "valid", "min_related", "min_related_adj", "keyframe", "run_submap", "span")
+
+    def __init__(self):
+        self.pending = []
+        self.records = {}
+
+    @contextlib.contextmanager
+    def installed(self):
+        from dmsa_lidar_slam_tpu_torch.map import device_map as dmap
+        from dmsa_lidar_slam_tpu_torch.map import static_points as sp
+
+        closest, select = dmap.closest_candidates, sp.select_static_points
+
+        def closest_rec(state, pos_w, n_candidates, max_dist):
+            ids, valid = closest(state, pos_w, n_candidates, max_dist)
+            self.pending.append(dict(count=state.count.clone(), updates=state.num_updates.clone(),
+                                     cap=state.orient_w.shape[0], ids=ids.clone(), valid=valid.clone()))
+            return ids, valid
+
+        def select_rec(*args, **kw):
+            sel = select(*args, **kw)
+            self.pending[-1]["overlap"] = sel.overlap_counts.clone()
+            return sel
+
+        dmap.closest_candidates, sp.select_static_points = closest_rec, select_rec
+        try:
+            yield self
+        finally:
+            dmap.closest_candidates, sp.select_static_points = closest, select
+
+    def collect(self, slam, step):
+        """After `slam` ran step `step`: its record (None for a step that
+        queried no map, as the first window's)."""
+        import numpy as np
+
+        from dmsa_lidar_slam_tpu_torch.pipeline.fused import EV_KEYFRAME
+
+        pending, self.pending = self.pending, []
+        if not pending:
+            return None
+        p = pending[-1]
+        ev = slam.state.events[step % slam.shapes.ev_cap].cpu().numpy()
+        count = int(p["count"])
+        ids = [int(i) for i in p["ids"].cpu().numpy()]
+        overlap = [int(o) for o in p["overlap"].cpu().numpy()]
+        related = [i for i, o in zip(ids, overlap) if o > 0]
+        min_related = min(related) if related else -1
+        full = count >= p["cap"]
+        keyframe = bool(ev[0] == EV_KEYFRAME)
+        span = int(round(float(ev[7]))) if keyframe else 0
+        # slot 0 holds the keyframe added (updates - count)-th, counting from 0
+        head = int(p["updates"]) - count
+        rec = dict(step=step, count=count, ids=ids, valid=[bool(v) for v in p["valid"].cpu().numpy()],
+                   overlap=overlap, min_related=min_related, min_related_adj=min_related - (1 if full else 0),
+                   full=full, head=head, keyframe=keyframe, run_submap=keyframe and span > 0, span=span, skip=None)
+        if keyframe and not rec["run_submap"]:
+            if min_related < 0:
+                rec["skip"] = "no candidate keyframe overlaps the scan"
+            elif full and min_related == 0:
+                rec["skip"] = (f"slot 0 (keyframe #{head}, retiring with this keyframe) is related: "
+                               f"{overlap[ids.index(0)]} static points")
+            else:
+                rec["skip"] = f"min_related_adj {rec['min_related_adj']}"
+        assert np.isfinite(ev).all(), ev
+        self.records[step] = rec
+        return rec
+
+
+def long_phase(device, seq, data):
+    """Phase (h): FusedDmsaSlam(long_config()) on the card over `data`
+    (long_data: LONG_SCANS scans of long_sequence(LONG_SEED), LONG_PTS raw
+    points over LONG_RINGS rings, with bench.py's stressors), generated
+    before the run.  Counters zeroed just before and read just after.  Each
+    step's event row and its StepRecorder record are read after its scan's
+    timed region, for the scan at which the submap span first reaches
+    LONG_MIN_SPAN, the first retirement and why each keyframe step after it
+    ran no submap solve.  Returns the launches."""
     import numpy as np
     import torch
 
@@ -1182,9 +1286,7 @@ def long_phase(device):
     from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
     from dmsa_lidar_slam_tpu_torch.pipeline.fused import FusedDmsaSlam, submap_keyframes
 
-    t0 = time.perf_counter()
-    seq, data = long_data()
-    gen_s = time.perf_counter() - t0
+    recorder = StepRecorder()
     slam = FusedDmsaSlam(long_config(), flush_every=20, device=device)
     sh = slam.shapes
     s_sub = submap_keyframes(slam.config, sh)
@@ -1193,15 +1295,17 @@ def long_phase(device):
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
     walls, spans, retired_at = [], {}, []
-    for pts, stamps, rings, ts, acc, gyr in data:
-        stepped = slam.scan_counter
-        t = time.perf_counter()
-        slam.process_imu_batch(acc, gyr, ts)
-        slam.process_scan(pts, stamps, rings)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-        if slam.scan_counter > stepped:  # the step of scan `stepped` ran (one scan is buffered)
-            record_step(slam, stepped, spans, retired_at)
+    with recorder.installed():
+        for pts, stamps, rings, ts, acc, gyr in data:
+            stepped = slam.scan_counter
+            t = time.perf_counter()
+            slam.process_imu_batch(acc, gyr, ts)
+            slam.process_scan(pts, stamps, rings)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            if slam.scan_counter > stepped:  # the step of scan `stepped` ran (one scan is buffered)
+                record_step(slam, stepped, spans, retired_at)
+                recorder.collect(slam, stepped)
         if len(walls) % 50 == 0:
             print(f"    scan {len(walls)}: {slam.kf_count} keyframes, deepest span {max(spans.values(), default=0)}, "
                   f"{1000.0 * sum(walls[-50:]) / 50:.1f} ms per scan over the last 50", flush=True)
@@ -1214,11 +1318,13 @@ def long_phase(device):
     kf_walls = [walls[k + 1] for k in spans if k + 1 >= LONG_WARM]  # scan k steps while scan k + 1 is fed
     timed = sum(walls[LONG_WARM:])
     out = dict(
-        scans=len(data), raw_points=LONG_PTS, rings=LONG_RINGS, gen_s=gen_s,
+        scans=len(data), raw_points=LONG_PTS, rings=LONG_RINGS,
         keyframes=slam.kf_count, retired_to_output=slam.output.num_static_keyframes,
         trajectory_poses=len(st), max_submap_span=slam.max_submap_span, span_gate=LONG_MIN_SPAN,
         **span_summary(spans, retired_at),
         spans_by_scan={k: spans[k] for k in sorted(spans)[:: max(1, len(spans) // 12)]},
+        skips_after_first_retirement={k: r["skip"] for k, r in sorted(recorder.records.items())
+                                      if r["keyframe"] and not r["run_submap"] and retired_at and k >= retired_at[0]},
         ate_m=ate, ate_gate_m=LONG_ATE_GATE_M,
         wall_ms_per_scan_10_on=1000.0 * timed / (len(data) - LONG_WARM),
         wall_ms_per_keyframe_scan=1000.0 * float(np.mean(kf_walls)) if kf_walls else None,
@@ -1234,6 +1340,83 @@ def long_phase(device):
     assert slam.max_submap_span >= LONG_MIN_SPAN, f"max submap span {slam.max_submap_span} < {LONG_MIN_SPAN}"
     assert len(st) >= 3 and np.all(np.isfinite(tr)), "the output trajectory is short or not finite"
     assert ate <= LONG_ATE_GATE_M, f"long run ATE {ate} above {LONG_ATE_GATE_M}"
+    return launches
+
+
+def record_submaps(slam):
+    """Wrap the keyframe map's write_back, which either package's DmsaSlam
+    calls once at the end of each submap solve (what it computes does not
+    change): returns the list that collects (scan_updates, keyframes added
+    so far, from_id, span) of every solve.  A solve after the ring's first
+    retirement has more keyframes added than the ring holds."""
+    solves = []
+    kf_map = slam.kf_map
+    write_back = kf_map.write_back
+
+    def recorded(from_id, *args):
+        solves.append((slam.scan_updates, kf_map.num_updates, int(from_id), kf_map.count - int(from_id)))
+        return write_back(from_id, *args)
+
+    kf_map.write_back = recorded
+    return solves
+
+
+def host_long_phase(device, seq, data):
+    """Phase (k): DmsaSlam(long_config()) on the card over the first
+    LONG_HOST_SCANS records of phase (h)'s data.  Counters zeroed just
+    before and read just after.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.io.synthetic import ate_rmse, long_config
+    from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
+    from dmsa_lidar_slam_tpu_torch.pipeline.slam import DmsaSlam
+
+    data = data[:LONG_HOST_SCANS]
+    slam = DmsaSlam(long_config(), device=device)
+    ms, c = slam.map_shapes, slam.config
+    assert (c.raw_scan_cap, ms.n_keyframes, ms.n_pts_per_kf, c.submap_max_keyframes) == \
+        (LONG_PTS, *LONG_SUBMAP_SHAPE, None), (c, ms)
+    solves = record_submaps(slam)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    walls, kf_scans = [], []
+    for i, (pts, stamps, rings, ts, acc, gyr) in enumerate(data):
+        updates = slam.kf_map.num_updates
+        t = time.perf_counter()
+        slam.process_imu_batch(acc, gyr, ts)
+        slam.process_scan(pts, stamps, rings)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        if slam.kf_map.num_updates > updates:
+            kf_scans.append(i)
+    launches = cuda_lib.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = slam.kf_map.count
+    st, tr, _ = slam.output.dense_poses_list(slam.kf_map.stamps[:n], slam.kf_map.transl_w[:n],
+                                             slam.kf_map.orient_w[:n])
+    ate = ate_rmse(st, tr, seq) if len(st) >= 3 else float("nan")
+    kf_walls = [walls[i] for i in kf_scans if i >= LONG_WARM]
+    timed = walls[LONG_WARM:]
+    out = dict(
+        scans=len(data), raw_points=LONG_PTS, rings=LONG_RINGS, keyframes=n,
+        keyframe_scans=kf_scans, submap_solves=len(solves), solves=solves,
+        solves_after_first_retirement=sum(u > ms.n_keyframes for _, u, _, _ in solves),
+        deepest_span=max((s for *_, s in solves), default=0), trajectory_poses=len(st), ate_m=ate,
+        ate_gate_m=LONG_ATE_GATE_M,
+        wall_ms_per_scan_10_on=1000.0 * sum(timed) / max(len(timed), 1),
+        wall_ms_per_keyframe_scan=1000.0 * float(np.mean(kf_walls)) if kf_walls else None,
+        wall_ms_by_scan=[round(1000.0 * w, 1) for w in walls], syncs="not counted in this phase",
+        peak_mem_gib=peak, launches=launches, stages_ms=slam.metrics.summary(),
+    )
+    print("  host long run " + json.dumps(out), flush=True)
+    for k in ("min_sq_dist", "radius_neighbor_moments"):
+        assert launches[k] > 0, f"kernel {k} never launched on the host long path"
+    assert n >= 3, f"{n} keyframes"
+    assert solves, "no submap solve in the host long run"
+    assert len(st) >= 3 and np.all(np.isfinite(tr)), "the output trajectory is short or not finite"
+    assert ate <= LONG_ATE_GATE_M, f"host long run ATE {ate} above {LONG_ATE_GATE_M}"
     return launches
 
 
@@ -1836,8 +2019,14 @@ def main():
                               results, calls)
     paths["multichip"] = phase(f"(j) the multi-chip dry run, {MULTICHIP_RANKS} ranks on the one card over gloo:",
                                multichip_phase, device)
+    t0 = time.perf_counter()
+    long_seq, long_records = long_data()
+    print(f"long_sequence({LONG_SEED}) data for (h) and (k): {time.perf_counter() - t0:.1f} s", flush=True)
     paths["long"] = phase(f"(h) the long configuration, {LONG_SCANS} scans of {LONG_PTS:,} points:", long_phase,
-                          device)
+                          device, long_seq, long_records)
+    paths["host_long"] = phase(f"(k) the host pipeline at the long configuration, {LONG_HOST_SCANS} scans:",
+                               host_long_phase, device, long_seq, long_records)
+    del long_records
     print("CUDA kernels per call (torch.profiler):", flush=True)
     for r, fn in zip(results, calls):
         device_ms, kernels = _profile(fn)

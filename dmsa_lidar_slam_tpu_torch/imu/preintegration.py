@@ -39,6 +39,55 @@ def right_jacobian(aa):
     return eye - c1[..., None, None] * K + c2[..., None, None] * KK
 
 
+def init_state(dtype=torch.float64, device="cpu") -> PreintState:
+    """The identity preintegration: no rotation, velocity, position or
+    covariance yet."""
+    return PreintState(
+        delta_rot=torch.eye(3, dtype=dtype, device=device),
+        delta_vel=torch.zeros(3, dtype=dtype, device=device),
+        delta_pos=torch.zeros(3, dtype=dtype, device=device),
+        cov=torch.zeros(9, 9, dtype=dtype, device=device),
+    )
+
+
+def step(state: PreintState, omega, acc, dt, cov_gyr, cov_acc) -> PreintState:
+    """One measurement update (ImuPreintegration.h:53-94)."""
+    dR = state.delta_rot
+    dtype, dev = dR.dtype, dR.device
+    dt2 = dt * dt
+    rot_incr = rot.axang2rotm(dt * omega)
+    skew_acc = rot.skew(acc)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    A = torch.eye(9, dtype=dtype, device=dev)
+    A[0:3, 0:3] = rot_incr.T
+    A[3:6, 0:3] = -dR @ skew_acc * dt
+    A[6:9, 0:3] = -0.5 * dR @ skew_acc * dt2
+    A[6:9, 3:6] = dt * eye3
+    B = torch.zeros(9, 6, dtype=dtype, device=dev)
+    B[0:3, 0:3] = right_jacobian(rot.rotm2axang(dR)) * dt
+    B[3:6, 3:6] = dR * dt
+    B[6:9, 3:6] = 0.5 * dR * dt2
+    noise = torch.zeros(6, 6, dtype=dtype, device=dev)
+    noise[0:3, 0:3] = cov_gyr
+    noise[3:6, 3:6] = cov_acc
+    return PreintState(
+        delta_rot=dR @ rot_incr,
+        delta_vel=state.delta_vel + dR @ acc * dt,
+        delta_pos=state.delta_pos + state.delta_vel * dt + 0.5 * dR @ acc * dt2,
+        cov=A @ state.cov @ A.T + B @ noise @ B.T,
+    )
+
+
+def preintegrate_sequential(omega, acc, dt, cov_gyr, cov_acc) -> PreintState:
+    """The per-sample recursion over [T, 3] runs, one step per sample (the
+    reference's loop; preintegrate reduces the same recursion in log depth,
+    equal up to floating-point reassociation)."""
+    state = init_state(omega.dtype, omega.device)
+    for w, a in zip(omega, acc):
+        state = step(state, w, a, dt, cov_gyr, cov_acc)
+    return state
+
+
 def preintegrate(omega, acc, dt, cov_gyr, cov_acc) -> PreintState:
     """Integrate [..., T, 3] gyro/accel runs with constant step dt; leading
     dims are batch (e.g. the control intervals of a window)."""

@@ -106,9 +106,11 @@ def floored_inverse_sym3(A, floor):
     return matrix_function_sym3(A, *_floor_fns(floor))
 
 
-def floored_inverse_sym6(a, floor):
-    """Packed twin of floored_inverse_sym3: [..., 6] -> [..., 6]."""
-    l1, l2, dd1, dd12, dd123 = _newton_coeffs(sym_eigvals6(a), *_floor_fns(floor))
+def matrix_function_sym6(a, g, dg, d2g):
+    """g(A) for packed symmetric [..., 6]: the packed twin of
+    matrix_function_sym3, the product (A - l1 I)(A - l2 I) unrolled (the
+    two factors commute)."""
+    l1, l2, dd1, dd12, dd123 = _newton_coeffs(sym_eigvals6(a), g, dg, d2g)
     a00, a01, a02, a11, a12, a22 = a.unbind(-1)
     p00, p11, p22 = a00 - l1, a11 - l1, a22 - l1
     q00, q11, q22 = a00 - l2, a11 - l2, a22 - l2
@@ -131,10 +133,32 @@ def floored_inverse_sym6(a, floor):
     )
 
 
+def floored_inverse_sym6(a, floor):
+    """Packed twin of floored_inverse_sym3: [..., 6] -> [..., 6]."""
+    return matrix_function_sym6(a, *_floor_fns(floor))
+
+
 def pack_sym6(A):
     return torch.stack(
         [A[..., 0, 0], A[..., 0, 1], A[..., 0, 2], A[..., 1, 1], A[..., 1, 2], A[..., 2, 2]], dim=-1
     )
+
+
+def unpack_sym6(a):
+    """Packed [..., 6] -> symmetric [..., 3, 3]."""
+    a00, a01, a02, a11, a12, a22 = a.unbind(-1)
+    return torch.stack(
+        [torch.stack([a00, a01, a02], dim=-1), torch.stack([a01, a11, a12], dim=-1),
+         torch.stack([a02, a12, a22], dim=-1)],
+        dim=-2,
+    )
+
+
+def sym6_inner(a, b):
+    """<A, B> Frobenius inner product of packed symmetrics (off-diagonals
+    counted twice)."""
+    w = torch.tensor([1.0, 2.0, 2.0, 1.0, 2.0, 1.0], dtype=a.dtype, device=a.device)
+    return torch.sum(a * b * w, dim=-1)
 
 
 def sym6_matvec(a, v):

@@ -16,7 +16,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from dmsa_lidar_slam_tpu_torch.ops import voxel
-from dmsa_lidar_slam_tpu_torch.ops.eig3 import floored_inverse_sym6, sym6_matvec
+from dmsa_lidar_slam_tpu_torch.ops.eig3 import floored_inverse_sym3, floored_inverse_sym6, sym6_matvec
 
 COV_EIG_FLOOR = 1e-4  # Gaussians.h:193
 
@@ -35,6 +35,31 @@ class CellSet(NamedTuple):
     num_valid: torch.Tensor  # []
     num_raw: torch.Tensor  # []
     valid_mem: Optional[torch.Tensor] = None  # [N] validity at every member
+
+
+def segment_mean_cov(points, point_cell, point_weight, num_segments: int):
+    """Two-pass per-segment mean and covariance over compact segment ids.
+
+    point_weight [N] is a 0/1 mask weight.  Returns (count [S], mean
+    [S, 3], cov [S, 3, 3]), cov normalized by (n - 1) like Eigen's sample
+    covariance (Gaussians.h:146-147)."""
+    w = point_weight
+
+    def seg_sum(v):
+        return torch.zeros(num_segments, *v.shape[1:], dtype=v.dtype, device=v.device).index_add_(0, point_cell, v)
+
+    count = seg_sum(w)
+    mean = seg_sum(points * w[:, None]) / torch.clamp(count, min=1.0)[:, None]
+    centered = (points - mean[point_cell]) * w[:, None]
+    m2 = seg_sum((centered[:, :, None] * centered[:, None, :]).reshape(-1, 9))
+    cov = m2.reshape(-1, 3, 3) / torch.clamp(count - 1.0, min=1.0)[:, None, None]
+    return count, mean, cov
+
+
+def info_from_cov(cov):
+    """Eigenvalue-floored inverse covariance [..., 3, 3]
+    (Gaussians.h:181-201), by the closed-form spectral polynomial."""
+    return floored_inverse_sym3(cov, COV_EIG_FLOOR)
 
 
 def _outer6(v):

@@ -1,10 +1,12 @@
-"""k-nearest neighbours on a hash grid (counterpart of
-dmsa_lidar_slam_tpu/ops/knn.py; the parts the kNN normals need).
+"""Fixed-radius neighbour queries and k-nearest neighbours on a hash grid
+(counterpart of dmsa_lidar_slam_tpu/ops/knn.py).
 
 Reference points are binned at cell size = radius by a murmur-finalized
 30-bit spatial hash; a query gathers the 27 adjacent cells, each truncated
-to `cap` members, and keeps the k nearest.  uint32 arithmetic is carried
-in int64 and masked to 32 bits.
+to `cap` members (callers compare HashGrid.max_occupancy with cap), and
+keeps the nearest or the k nearest.  Queries go in chunks of _QUERY_CHUNK,
+so the [chunk, 27 * cap, 3] gather stays bounded.  uint32 arithmetic is
+carried in int64 and masked to 32 bits.
 """
 
 from typing import NamedTuple
@@ -26,6 +28,7 @@ class HashGrid(NamedTuple):
     cell_count: torch.Tensor  # [N]
     num_cells: torch.Tensor  # []
     cell_size: torch.Tensor  # []
+    max_occupancy: torch.Tensor  # [] largest cell's member count
 
 
 def _hash_coords(c):
@@ -71,6 +74,7 @@ def build_grid(points, mask, cell_size) -> HashGrid:
         cell_count=cell_count,
         num_cells=num_cells,
         cell_size=torch.as_tensor(cell_size, device=dev),
+        max_occupancy=torch.max(torch.where(idx < num_cells, cell_count, torch.zeros_like(cell_count))),
     )
 
 
@@ -111,3 +115,32 @@ def knn_indices(grid: HashGrid, queries, query_mask, k: int, cap: int = 8):
     d2 = torch.cat(d_out)
     valid = torch.isfinite(d2) & query_mask[:, None]
     return idx, d2, valid
+
+
+def min_sq_dist(grid: HashGrid, queries, query_mask, cap: int = 16):
+    """Squared distance [Q] f32 from each query to its nearest grid point
+    among the 27 adjacent cells (exact for radii <= cell_size while no cell
+    holds more than cap points); +inf where there is no candidate or the
+    query is masked."""
+    out = []
+    for a in range(0, queries.shape[0], _QUERY_CHUNK):
+        qc = queries[a : a + _QUERY_CHUNK]
+        idx, ok = _candidates(grid, qc, cap)
+        d2 = torch.sum((qc[:, None, :] - grid.sorted_pts[idx]) ** 2, dim=-1)
+        out.append(torch.amin(torch.where(ok, d2, torch.full_like(d2, float("inf"))), dim=1))
+    best = torch.cat(out) if out else queries.new_zeros(0)
+    return torch.where(query_mask, best, torch.full_like(best, float("inf")))
+
+
+def has_neighbor_within(grid: HashGrid, queries, query_mask, radius, cap: int = 16):
+    """Boolean [Q]: the nearest grid point lies within radius (exact for
+    cell_size >= radius)."""
+    return min_sq_dist(grid, queries, query_mask, cap=cap) <= radius * radius
+
+
+def overlap_fraction(ref_pts, ref_mask, query_pts, query_mask, max_dist, cap: int = 16):
+    """Share [] f64 of the valid queries with a reference point within
+    max_dist (getOverlap, DmsaSlam.h:377-414)."""
+    grid = build_grid(ref_pts, ref_mask, max_dist)
+    near = has_neighbor_within(grid, query_pts, query_mask, max_dist, cap=cap) & query_mask
+    return torch.sum(near).to(torch.float64) / torch.clamp(torch.sum(query_mask), min=1).to(torch.float64)

@@ -44,6 +44,15 @@ def combined_key(hi, lo):
     return (hi.to(torch.int64) << 32) + (lo.to(torch.int64) + 2**31)
 
 
+class VoxelBinning(NamedTuple):
+    """N points binned into voxel cells (fixed shapes, size N)."""
+
+    order: torch.Tensor  # [N] permutation sorting points by voxel key (invalid last)
+    seg_ids: torch.Tensor  # [N] cell index per sorted point, clamped to N - 1
+    point_cell: torch.Tensor  # [N] cell index per original point (N - 1 if masked)
+    num_cells: torch.Tensor  # [] occupied cells among valid points
+
+
 def run_flags(key_sorted):
     """(new_cell, is_end) bool flags of the runs of equal sorted keys."""
     n = key_sorted.shape[0]
@@ -76,6 +85,23 @@ def bin_runs(points, mask, grid_size, channel=None) -> RunBinning:
     end = torch.cat([suffix_min[1:], torch.full((1,), n, dtype=torch.int64, device=points.device)])
     num_cells = torch.sum(new_cell & mask[order])
     return RunBinning(order=order, new_cell=new_cell, start=start, end=end, num_cells=num_cells)
+
+
+def bin_points(points, mask, grid_size, channel=None) -> VoxelBinning:
+    """Bin masked points [N, 3] into voxel cells of size grid_size, cells
+    numbered 0.. in the key order of bin_runs."""
+    n = points.shape[0]
+    runs = bin_runs(points, mask, grid_size, channel)
+    seg_ids = torch.clamp(torch.cumsum(runs.new_cell.to(torch.int64), 0) - 1, max=n - 1)
+    point_cell = torch.empty_like(seg_ids)
+    point_cell[runs.order] = seg_ids
+    point_cell = torch.where(mask, point_cell, n - 1)
+    return VoxelBinning(order=runs.order, seg_ids=seg_ids, point_cell=point_cell, num_cells=runs.num_cells)
+
+
+def count_voxels(points, mask, grid_size):
+    """Number of occupied voxels (exact; sorts the points)."""
+    return bin_points(points, mask, grid_size).num_cells
 
 
 def run_sums(values, start):
@@ -115,6 +141,15 @@ def compact(mask, cap: int):
     count = torch.sum(mask)
     out_mask = torch.arange(cap, device=mask.device) < count
     return idx, out_mask
+
+
+def downsample_compact(points, mask, rings, grid_size, prio, cap: int):
+    """Random-grid downsampling packed to `cap` slots.  prio [N] int32 as
+    random_downsample_mask takes them.  Returns (points [cap, 3], rings
+    [cap], out_mask [cap], total_kept [])."""
+    keep = random_downsample_mask(points, mask, grid_size, prio)
+    idx, out_mask = compact(keep, cap)
+    return points[idx], rings[idx], out_mask, torch.sum(keep)
 
 
 def _mul32(h, c: int):

@@ -41,8 +41,7 @@ import torch
 
 from dmsa_lidar_slam_tpu_torch.dmsa import optimizer as opt
 from dmsa_lidar_slam_tpu_torch.ops import voxel
-from dmsa_lidar_slam_tpu_torch.ops.eig3 import floored_inverse_sym3
-from dmsa_lidar_slam_tpu_torch.ops.gaussians import COV_EIG_FLOOR
+from dmsa_lidar_slam_tpu_torch.ops.gaussians import info_from_cov
 from dmsa_lidar_slam_tpu_torch.parallel import mesh as pmesh
 
 DEFAULT_LINE_SEARCH_FRACS = opt.OptimSettings.line_search_fracs
@@ -127,7 +126,7 @@ def build_cells_sharded(points, mask, rings, grid_size, min_points: int, table_s
 
     slot = torch.arange(table_size, device=points.device)
     valid = (count >= min_points) & (rmin != rmax) & (slot < table_size - 1)
-    info = floored_inverse_sym3(cov, COV_EIG_FLOOR)
+    info = info_from_cov(cov)
     raw_w = torch.where(valid, 1.0 / torch.clamp(count, min=1.0), torch.zeros_like(count))
     num_valid = torch.sum(valid)
     mean_w = torch.sum(raw_w) / torch.clamp(num_valid, min=1)

@@ -292,14 +292,14 @@ def make_step(config: Config, shapes: FusedShapes, device, mesh: Optional[pmesh.
         return torch.where(use_imu, grav, torch.zeros_like(grav)), plaus
 
     def make_keyframe_cloud(points_w, mask, rings, anchor_o, anchor_t, min_grid, prio):
-        keep = voxel.random_downsample_mask(points_w, mask, min_grid, prio)
-        idx, out_mask = voxel.compact(keep, mshapes.n_pts_per_kf)
-        rings_out = torch.where(out_mask, rings[idx], torch.zeros_like(rings[idx]))
+        pts_c, rings_c, out_mask, n_kept = voxel.downsample_compact(points_w, mask, rings, min_grid, prio,
+                                                                    mshapes.n_pts_per_kf)
+        rings_out = torch.where(out_mask, rings_c, torch.zeros_like(rings_c))
         R_inv = rot.axang2rotm(anchor_o).T.to(_F32)
-        pts_local = (points_w[idx] - anchor_t.to(_F32)[None, :]) @ R_inv.T
+        pts_local = (pts_c - anchor_t.to(_F32)[None, :]) @ R_inv.T
         pts_local = torch.where(out_mask[:, None], pts_local, torch.zeros_like(pts_local))
         normals = nrm.estimate_normals(pts_local, out_mask, min_grid)
-        return pts_local, normals, rings_out, out_mask, torch.sum(keep)
+        return pts_local, normals, rings_out, out_mask, n_kept
 
     def store_old_window(state, params, data):
         _, gp, _, _ = ct.dense_poses(params, data, wshapes)

@@ -420,14 +420,13 @@ class DmsaSlam:
         out = fwd(params, data)
         nw = self.window_shapes.n_window_pts
         P = self.map_shapes.n_pts_per_kf
-        keep = voxel.random_downsample_mask(out.points[:nw], out.mask[:nw], min_grid, self._next_priorities(nw))
-        idx, m = voxel.compact(keep, P)
-        n_kept = int(torch.sum(keep))
-        if n_kept > P:
-            log.warning("keyframe cloud overflow: %d > cap %d", n_kept, P)
+        pts_c, rings_c, m, n_kept = voxel.downsample_compact(
+            out.points[:nw], out.mask[:nw], out.ring_ids[:nw], min_grid, self._next_priorities(nw), P)
+        if int(n_kept) > P:
+            log.warning("keyframe cloud overflow: %d > cap %d", int(n_kept), P)
         mask = m.cpu().numpy()
-        pts_w = out.points[:nw][idx].cpu().numpy()[mask]
-        rings = out.ring_ids[:nw][idx].cpu().numpy()[mask]
+        pts_w = pts_c.cpu().numpy()[mask]
+        rings = rings_c.cpu().numpy()[mask]
 
         anchor_o = data.anchor_orient.cpu().numpy().astype(float)
         anchor_t = data.anchor_transl.cpu().numpy().astype(float)
