@@ -46,15 +46,15 @@ printed on its own lines and none of them caught:
      build/, through `python -m dmsa_lidar_slam_tpu_torch.pipeline.evaluate`
      in a subprocess: its ATE <= 0.03 m, and its RPE;
   4. the host pipeline through the CLI runner's entry point:
-     pipeline.runner.run(--pipeline host) over a rosbag written from 40
-     scans of bench_sequence(3) at bench_config() width (20,000 points per
+     pipeline.runner.run(--pipeline host) over a rosbag written from
+     HOST_SCANS (40) scans of bench_sequence(3) at bench_config() width (20,000 points per
      scan).  Counters zeroed just before and read just after: K4 and K5
      must have run, kf_count >= 3, Poses.txt and PointCloud.pcd written, and
      the output trajectory's ATE <= 0.03 m;
   (c) DmsaSlam on the card over HOST_CK_SCANS bench scans, checkpointed at
      HOST_SAVE_AT; a fresh DmsaSlam loads the checkpoint and replays the
      rest, counters zeroed just before and read just after: the same
-     keyframes within HOST_RESUME_TOL, K4 and K5 launched;
+     keyframes bit for bit (HOST_RESUME_TOL = 0), K4 and K5 launched;
   (e) the two-scan alignment (dmsa/problems.py, the room scene of
      tests/torch_scenes.py) from ~20 cm / ~40 mrad off through the
      optimizer's autodiff path on the card: within 1 cm / 1 mrad of the
@@ -155,12 +155,14 @@ Depth cut to make room for (h): (a) traces one fused scan (was 3: one
 scan holds every check of the phase, and on an H100 (a) takes ~85 s with
 one scan against ~3.5 min with three).  (k) is cut in depth to
 LONG_HOST_SCANS of the long run's 310 scans (the host pipeline takes
-~2 s per scan there): 11 of the ring's 48 keyframes, spans of 2-4; the
-ring's filling and retirement, and the second lap from scan ~100 on,
-where (h)'s spans reach 26, are left out.  No other phase is cut; (i) and (j)
-take ~5 s and ~35 s on an H100, and (j)'s map (MULTICHIP_SHAPE) and the
-host bench phase's HOST_SCANS are the depths to cut first should the
-script outgrow its time.
+~2.2-3 s per scan there): 7 of the ring's 48 keyframes, spans of 2-4; the
+ring's filling and retirement, and the second lap from scan ~100 on, run
+in tools/torch_long_host.py, a run of its own; on H100 hosts this script
+took 892-940 s with (k) at 60 scans, against its limit of 1,200 s.
+No other phase is cut; (i) and (j) take ~1 s and ~35 s on an H100, and
+(j)'s map (MULTICHIP_SHAPE) and the host bench phase's HOST_SCANS (at 30
+scans it adds 3 keyframes, the least the phase accepts) are the depths to
+cut next should the script outgrow its time.
 
 The line before the last is a JSON object with one entry per kernel and
 shape (launches: the sum over the fused, fused_resumed, host,
@@ -199,11 +201,13 @@ WINDOW_MASKED_SHARE = 0.3
 SAVE_AT = 30  # the fused checkpoint: after scan 30 of N_SCANS (phases a, b)
 TRACE_SCANS = 1  # fused window scans under traceutil.capture (phase a; cut from 3 for phase h)
 HOST_SAVE_AT, HOST_CK_SCANS = 17, 22  # the host checkpoint run (phase c): a keyframe at ~20
-# resumed keyframes against the uninterrupted run's, m and rad: on an H100
-# the fused pipeline repeated its bits (0: K1-K5 and its torch ops are
-# deterministic); the host pipeline's structured path sums with index_add_,
-# float atomics on the card (up to 1.9e-4; PERF.md section 6)
-FUSED_RESUME_TOL, HOST_RESUME_TOL = 1e-6, 1e-3
+# resumed keyframes against the uninterrupted run's, m and rad.  Both
+# pipelines sum in a fixed order on the card (K1-K5; the host pipeline's
+# cell sums through ops/voxel.run_sums), and a host checkpoint holds
+# the state bit for bit (tests/test_torch_checkpoint_host.py), so the
+# host resume must equal the run; the fused one is held to 1e-6, as it
+# has been since its checkpoint was ported
+FUSED_RESUME_TOL, HOST_RESUME_TOL = 1e-6, 0.0
 # phase (g), the distributed keyframe adjustment (parallel/*): the shipped
 # 100-keyframe ring at the keyframe cap (409,600 points, P = 594) and
 # bench_config's 16-keyframe submap (65,536 points, P = 90), each keyframe
@@ -255,10 +259,10 @@ SHORT_SCAN_EVERY, SHORT_SCAN_KEEP = 37, 0.25
 LONG_SUBMAP_SHAPE = (48, 4096)
 LONG_SUBMAP_MASKED_SHARE = 0.286
 # phase (k): DmsaSlam(long_config()) over the first LONG_HOST_SCANS records
-# of phase (h)'s data: 60 took 117.3 s on an H100 (2.2 s per scan from
-# scan 10 on, 3.9 s on keyframe scans; PERF.md), within the phase's ~150 s
-# and the script's ~850 s
-LONG_HOST_SCANS = 60
+# of phase (h)'s data: 60 took 106-161 s on an H100 (2.2-3.0 s per scan
+# from scan 10 on, 5.4-6.1 s on keyframe scans; PERF.md), 40 take about
+# two thirds of that
+LONG_HOST_SCANS = 40
 ROWS12_SEED = 40  # K1's 12-row rows (phase 2)
 # phase (i): the weights' seed; one iteration through the kernels against
 # the same iteration through their plain versions: parameters within
@@ -1257,15 +1261,98 @@ class StepRecorder:
         rec = dict(step=step, count=count, ids=ids, valid=[bool(v) for v in p["valid"].cpu().numpy()],
                    overlap=overlap, min_related=min_related, min_related_adj=min_related - (1 if full else 0),
                    full=full, head=head, keyframe=keyframe, run_submap=keyframe and span > 0, span=span, skip=None)
-        if keyframe and not rec["run_submap"]:
-            if min_related < 0:
-                rec["skip"] = "no candidate keyframe overlaps the scan"
-            elif full and min_related == 0:
-                rec["skip"] = (f"slot 0 (keyframe #{head}, retiring with this keyframe) is related: "
-                               f"{overlap[ids.index(0)]} static points")
-            else:
-                rec["skip"] = f"min_related_adj {rec['min_related_adj']}"
+        rec["skip"] = skip_reason(rec)
         assert np.isfinite(ev).all(), ev
+        self.records[step] = rec
+        return rec
+
+
+def skip_reason(rec):
+    """Why a keyframe step of a StepRecorder record ran no submap solve
+    (None for a solve or a step without a keyframe)."""
+    if not rec["keyframe"] or rec["run_submap"]:
+        return None
+    if rec["min_related"] < 0:
+        return "no candidate keyframe overlaps the scan"
+    if rec["full"] and rec["min_related"] == 0:
+        return (f"slot 0 (keyframe #{rec['head']}, retiring with this keyframe) is related: "
+                f"{rec['overlap'][rec['ids'].index(0)]} static points")
+    return f"min_related_adj {rec['min_related_adj']}"
+
+
+class HostStepRecorder:
+    """StepRecorder's record for DmsaSlam (pipeline/slam.py), each scan's
+    keyframe-map decision from the calls its step makes: the candidate ids
+    (kf_map.closest_n_ids, filtered by distance as _add_static_points
+    filters them), their overlap counts (sp.select_static_points),
+    min_related (_add_static_points' third value), the from_id handed to
+    _keyframe_optimization (min_related_adj) and whether it ran a solve
+    (kf_map.write_back).  Wrapped on the instance while `installed`; what
+    the step computes does not change.  The same keys as StepRecorder's,
+    without `valid`: the host keeps only the candidates within
+    dist_static_points_keyframe."""
+
+    def __init__(self):
+        self.pending = {}
+        self.records = {}
+
+    @contextlib.contextmanager
+    def installed(self, slam):
+        import numpy as np
+
+        from dmsa_lidar_slam_tpu_torch.map import static_points as sp
+
+        kf_map, pending = slam.kf_map, self.pending
+        add_static, kf_opt, write_back, select = (slam._add_static_points, slam._keyframe_optimization,
+                                                  kf_map.write_back, sp.select_static_points)
+
+        def add_static_rec(fwd, params, data, min_grid):
+            c = slam.config
+            pos = data.anchor_transl.cpu().numpy().astype(float)
+            ids = [k for k in kf_map.closest_n_ids(pos, c.closest_k_keyframes_as_static_points)
+                   if np.linalg.norm(pos - kf_map.transl_w[k]) < c.dist_static_points_keyframe]
+            pending.update(count=kf_map.count, updates=kf_map.num_updates, full=kf_map.is_full, ids=ids,
+                           overlap=[0] * len(ids))
+            sel, max_key, min_related = add_static(fwd, params, data, min_grid)
+            pending["min_related"] = int(min_related)
+            return sel, max_key, min_related
+
+        def select_rec(*args, **kw):
+            sel = select(*args, **kw)
+            pending["overlap"] = [int(o) for o in sel.overlap_counts.cpu().numpy()[: len(pending["ids"])]]
+            return sel
+
+        def kf_opt_rec(from_id):
+            pending["from_id"] = int(from_id)
+            return kf_opt(from_id)
+
+        def write_back_rec(from_id, *args):
+            pending["span"] = kf_map.count - int(from_id)
+            return write_back(from_id, *args)
+
+        slam._add_static_points, slam._keyframe_optimization, kf_map.write_back = (add_static_rec, kf_opt_rec,
+                                                                                   write_back_rec)
+        sp.select_static_points = select_rec
+        try:
+            yield self
+        finally:
+            sp.select_static_points = select
+            slam._add_static_points, slam._keyframe_optimization, kf_map.write_back = add_static, kf_opt, write_back
+
+    def collect(self, slam, step):
+        """After `slam` ran scan `step`: its record (None for a scan that
+        queried no map)."""
+        p = dict(self.pending)
+        self.pending.clear()
+        if "ids" not in p:
+            return None
+        keyframe = slam.kf_map.num_updates > p["updates"]
+        span = p.get("span", 0)
+        min_related = p["min_related"]
+        rec = dict(step=step, count=p["count"], ids=p["ids"], overlap=p["overlap"], min_related=min_related,
+                   min_related_adj=p.get("from_id", min_related - (1 if p["full"] else 0)), full=p["full"],
+                   head=p["updates"] - p["count"], keyframe=keyframe, run_submap=span > 0, span=span, skip=None)
+        rec["skip"] = skip_reason(rec)
         self.records[step] = rec
         return rec
 

@@ -30,7 +30,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from dmsa_lidar_slam_tpu_torch.ops import gaussians
+from dmsa_lidar_slam_tpu_torch.ops import gaussians, voxel
 
 # stop reason codes
 STOP_NONE = 0
@@ -231,7 +231,7 @@ def _iteration_structured(forward_fn, structured_fn, params, data, settings, min
         res, g_sorted = gaussians.cell_residuals_and_grad(out.points, out.mask, c)
         g_orig = torch.zeros_like(out.points).index_copy_(0, c.order, g_sorted)
         jp = contract(g_orig)  # [N, P] per-point rows, original order
-        jc = torch.zeros_like(jp).index_add_(0, c.start, jp[c.order])  # cell sums at run starts
+        jc = voxel.run_sums(jp[c.order], c.runs)  # cell sums, kept at run starts below
         e_parts.append(res)
         j_parts.append(torch.where(c.valid[:, None], jc, torch.zeros_like(jc)))
     rdt = torch.promote_types(e_parts[0].dtype, out.extra.dtype)

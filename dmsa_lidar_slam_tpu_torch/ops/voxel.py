@@ -104,13 +104,89 @@ def count_voxels(points, mask, grid_size):
     return bin_points(points, mask, grid_size).num_cells
 
 
-def run_sums(values, start):
-    """Per-run sums of contiguous sorted runs, broadcast to every member.
+class Segments(NamedTuple):
+    """Members grouped by segment, for sums taken in a fixed order."""
 
-    Segment sums keyed by the run start (the reference differences a global
+    order: torch.Tensor  # [N] members segment by segment, stable
+    offsets: torch.Tensor  # [S + 1] first position of each segment in that order, then N
+
+
+class Runs(NamedTuple):
+    """The runs of a sorted layout: one slab of n rows, or L slabs laid end
+    to end (gaussians.concat_cells), for run_sums."""
+
+    offsets: torch.Tensor  # [n + 1] or [L, n + 1] each slab's run bounds (unused runs empty)
+    ordinal: torch.Tensor  # [L * n] each row's run, as a row of the flattened [L * n] sums
+
+
+class _SegmentSum(torch.autograd.Function):
+    """Sums of values [*L, N, ...] along dim len(L) over [offsets[..., k],
+    offsets[..., k + 1]) (offsets [*L, S + 1]), each segment adding its rows
+    one after another: torch.segment_reduce's kernel for values of two or
+    more dimensions.  A 1-D value gets a trailing dimension, since on a
+    card the library sums 1-D segments by a tree reduction instead.  No
+    atomics, so the same bits on every call.  Linear, so its tangent is
+    the same sum of the tangents; under vmap the batch rides behind the
+    summed dimension."""
+
+    @staticmethod
+    def forward(values, offsets):
+        axis = offsets.dim() - 1
+        flat = values.dim() == axis + 1
+        v = values[..., None] if flat else values
+        out = torch.segment_reduce(v.contiguous(), "sum", offsets=offsets, axis=axis, unsafe=True)
+        return out[..., 0] if flat else out
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.offsets = inputs[1]
+
+    @staticmethod
+    def jvp(ctx, t_values, _):
+        return _SegmentSum.apply(t_values, ctx.offsets)
+
+    @staticmethod
+    def vmap(info, in_dims, values, offsets):
+        axis = offsets.dim() - 1
+        return _SegmentSum.apply(values.movedim(in_dims[0], axis + 1), offsets), axis + 1
+
+
+def segments(seg_ids, num_segments: int) -> Segments:
+    """Group members by their segment id [N] in [0, num_segments): one
+    stable sort, reusable by every sum over the same ids."""
+    ids_s, order = torch.sort(seg_ids, stable=True)
+    bounds = torch.arange(num_segments + 1, dtype=ids_s.dtype, device=ids_s.device)
+    return Segments(order=order, offsets=torch.searchsorted(ids_s, bounds))
+
+
+def segment_sum(seg: Segments, values, dim: int = 0):
+    """Sums of `values` along `dim` per segment ([.., S, ..]), each in the
+    members' order in seg.order; an empty segment sums to 0."""
+    values = values.index_select(dim, seg.order)
+    return _SegmentSum.apply(values.movedim(dim, 0), seg.offsets).movedim(0, dim)
+
+
+def sorted_runs(start, num_members) -> Runs:
+    """The runs of one sorted slab from each position's run start [N].
+    num_members []: the rows from there on (the masked tail, whose sums no
+    caller reads) join no run, and read the empty run's 0."""
+    n = start.shape[0]
+    iota = torch.arange(n, dtype=start.dtype, device=start.device)
+    ordinal = torch.cumsum(start == iota, 0) - 1
+    offsets = torch.searchsorted(ordinal, torch.arange(n + 1, dtype=ordinal.dtype, device=start.device))
+    return Runs(offsets=torch.minimum(offsets, num_members), ordinal=ordinal)
+
+
+def run_sums(values, runs: Runs):
+    """Per-run sums of the rows of values [L * n, ...], broadcast to every
+    member.
+
+    Each run summed in sorted order (the reference differences a global
     cumsum instead, which in f32 loses ~1e-7 of the running total: ~1 mm on
     point sums at 10^4-10^5 points)."""
-    return torch.zeros_like(values).index_add_(0, start, values)[start]
+    lead = runs.offsets.shape[:-1]
+    sums = _SegmentSum.apply(values.reshape(*lead, -1, *values.shape[1:]), runs.offsets)
+    return sums.reshape(-1, *values.shape[1:])[runs.ordinal]
 
 
 def random_downsample_mask(points, mask, grid_size, prio):

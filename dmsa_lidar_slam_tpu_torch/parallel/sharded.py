@@ -15,8 +15,12 @@ Differences from the single-card path (ops.gaussians):
     iteration;
   - the ring-diversity test uses per-cell ring min/max
     (DmsaOptimizer.h:304-307).
-No kernel: the cell statistics are segment sums, mins and maxes
-(index_add_, scatter_reduce) on tensors.
+No kernel: the cell statistics are segment sums, mins and maxes on
+tensors.  Each build sorts its rank's slot ids once (voxel.segments), and
+every sum over the slots, of the build and of the iteration's residuals,
+adds a slot's members in that order: the same bits on every call, which
+float atomics (index_add_ on a card) do not give.  Integer mins and maxes
+(scatter_reduce) are exact in any order.
 
 The Jacobian.  The reference linearizes through its psums with JAX's
 forward mode; torch.func cannot carry tangents through torch.distributed.
@@ -81,11 +85,10 @@ def elect_slot_owners(points, mask, cid, grid_size, table_size: int, mesh: pmesh
     return mask & is_owner_hi & (lo == owner_lo[cid])
 
 
-def _partial_first_moments(points, w, cid, rings, table_size: int):
+def _partial_first_moments(points, w, cid, members: voxel.Segments, rings, table_size: int):
     """This shard's count, point sum, ring min and ring max per slot."""
-    count = torch.zeros(table_size, dtype=points.dtype, device=points.device).index_add_(0, cid, w)
-    psum_ = torch.zeros(table_size, 3, dtype=points.dtype, device=points.device).index_add_(
-        0, cid, points * w[:, None])
+    sums = voxel.segment_sum(members, torch.cat([w[:, None], points * w[:, None]], dim=1))
+    count, psum_ = sums[:, 0], sums[:, 1:]
     rmin = _segment_min(torch.where(w > 0, rings, torch.full_like(rings, _I32_MAX)), cid, table_size)
     rmax = torch.full((table_size,), _I32_MIN, dtype=rings.dtype, device=rings.device).scatter_reduce(
         0, cid, torch.where(w > 0, rings, torch.full_like(rings, -_I32_MAX)), "amax")
@@ -99,6 +102,7 @@ class ShardedCells(NamedTuple):
     num_valid: torch.Tensor  # []
     count: torch.Tensor  # [T] members over the mesh
     mean: torch.Tensor  # [T, 3] at build time
+    members: voxel.Segments  # this rank's points grouped by slot (the build's sort)
 
 
 def build_cells_sharded(points, mask, rings, grid_size, min_points: int, table_size: int, mesh: pmesh.Mesh):
@@ -112,7 +116,8 @@ def build_cells_sharded(points, mask, rings, grid_size, min_points: int, table_s
     cid = hash_cell_ids(points, mask, grid_size, table_size)
     keep = elect_slot_owners(points, mask, cid, grid_size, table_size, mesh)
     w = keep.to(points.dtype)
-    count, psum_, rmin, rmax = _partial_first_moments(points, w, cid, rings, table_size)
+    members = voxel.segments(cid, table_size)
+    count, psum_, rmin, rmax = _partial_first_moments(points, w, cid, members, rings, table_size)
     moments = pmesh.psum(torch.cat([count[:, None], psum_], dim=1), mesh)
     count, psum_ = moments[:, 0], moments[:, 1:]
     rmin = pmesh.pmin(rmin, mesh)
@@ -121,7 +126,7 @@ def build_cells_sharded(points, mask, rings, grid_size, min_points: int, table_s
 
     centered = (points - mean[cid]) * w[:, None]
     outer = (centered[:, :, None] * centered[:, None, :]).reshape(-1, 9)
-    m2 = torch.zeros(table_size, 9, dtype=points.dtype, device=points.device).index_add_(0, cid, outer)
+    m2 = voxel.segment_sum(members, outer)
     cov = pmesh.psum(m2, mesh).reshape(-1, 3, 3) / torch.clamp(count - 1.0, min=1.0)[:, None, None]
 
     slot = torch.arange(table_size, device=points.device)
@@ -131,7 +136,8 @@ def build_cells_sharded(points, mask, rings, grid_size, min_points: int, table_s
     num_valid = torch.sum(valid)
     mean_w = torch.sum(raw_w) / torch.clamp(num_valid, min=1)
     weight = torch.where(valid, raw_w / torch.clamp(mean_w, min=1e-30), torch.zeros_like(raw_w))
-    cells = ShardedCells(info=info, weight=weight, valid=valid, num_valid=num_valid, count=count, mean=mean)
+    cells = ShardedCells(info=info, weight=weight, valid=valid, num_valid=num_valid, count=count, mean=mean,
+                         members=members)
     return cells, (cid, keep)
 
 
@@ -145,15 +151,12 @@ def _batched_residuals(points_b, keep, cid, cells: ShardedCells, mesh: pmesh.Mes
     """Residuals [B, T] of B point sets [B, n, 3] over the frozen cells:
     the means from each set's own psum'd sums (membership frozen), then the
     frozen quadratic form.  Two psums for all B."""
-    b, n, _ = points_b.shape
-    t = cells.count.shape[0]
     w = keep.to(points_b.dtype)
-    s = torch.zeros(b, t, 3, dtype=points_b.dtype, device=points_b.device).index_add_(
-        1, cid, points_b * w[None, :, None])
+    s = voxel.segment_sum(cells.members, points_b * w[None, :, None], dim=1)
     mean = pmesh.psum(s, mesh) / torch.clamp(cells.count, min=1.0)[None, :, None]
     d = points_b - mean[:, cid]
     quad = torch.einsum("bni,nij,bnj->bn", d, cells.info[cid], d) * w
-    q = torch.zeros(b, t, dtype=quad.dtype, device=quad.device).index_add_(1, cid, quad)
+    q = voxel.segment_sum(cells.members, quad, dim=1)
     return _finish(cells, pmesh.psum(q, mesh))[1]
 
 
@@ -170,18 +173,14 @@ def _residuals_and_jacobian(points, dpoints, keep, cid, cells: ShardedCells, mes
     given their tangents dpoints [P, n, 3].  The mean's tangent is the
     psum of the local sums' tangents over the (frozen) count; the
     quadratic form's tangent 2 d^T L dd, psum'd beside the form itself."""
-    p_dim = dpoints.shape[0]
-    t = cells.count.shape[0]
     w = keep.to(points.dtype)
-    ds = torch.zeros(p_dim, t, 3, dtype=dpoints.dtype, device=dpoints.device).index_add_(
-        1, cid, dpoints * w[None, :, None])
+    ds = voxel.segment_sum(cells.members, dpoints * w[None, :, None], dim=1)
     dmean = pmesh.psum(ds, mesh) / torch.clamp(cells.count, min=1.0)[None, :, None]
     d = points - cells.mean[cid]
     ld = torch.einsum("nij,nj->ni", cells.info[cid], d)
     quad = torch.sum(d * ld, dim=1) * w
     dquad = 2.0 * torch.einsum("pni,ni->pn", dpoints - dmean[:, cid], ld) * w
-    q = torch.zeros(1 + p_dim, t, dtype=quad.dtype, device=quad.device).index_add_(
-        1, cid, torch.cat([quad[None], dquad]))
+    q = voxel.segment_sum(cells.members, torch.cat([quad[None], dquad]), dim=1)
     q = pmesh.psum(q, mesh)
     val, r = _finish(cells, q[0])
     dr = torch.where(cells.valid, torch.sign(val) * cells.weight * q[1:] / (2.0 * r), torch.zeros_like(q[1:]))

@@ -213,7 +213,17 @@ def _planar_below_floor(seed, n):
     return np.einsum("nij,nj,nkj->nik", q, lam, q).astype(np.float32)
 
 
-@pytest.mark.parametrize("case", ["f64", "f32", "f32_planar_below_floor"])
+def _linear_below_floor(seed, n):
+    """f32 linear cells: one eigenvalue in [0.01, 4], two in [1e-8, 5e-5],
+    below the 1e-4 floor."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.standard_normal((n, 3, 3)))
+    lam = np.exp(rng.uniform(np.log(1e-2), np.log(4.0), size=(n, 3)))
+    lam[:, 1:] = np.exp(rng.uniform(np.log(1e-8), np.log(5e-5), size=(n, 2)))
+    return np.einsum("nij,nj,nkj->nik", q, lam, q).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["f64", "f32", "f32_planar_below_floor", "f32_linear_below_floor"])
 def test_info_from_cov(case):
     """f64 on spectra down to 1e-8: within 1e-9 of the scale (the floored
     inverse divides by eigenvalue gaps near the floor, as
@@ -227,7 +237,22 @@ def test_info_from_cov(case):
     these draws, so they are held within 2e-2 (the 2% cell-build rounding
     of ROADMAP.md's "Not faults"), and the floored direction carries the
     largest eigenvalue, 1 / 1e-4, within 1%.  Spectra below what f32
-    resolves elsewhere are that same cell-build rounding."""
+    resolves elsewhere are that same cell-build rounding.  f32 linear cells
+    below the floor: the packed floored_inverse_sym6, which build_cells
+    uses, is held between the packages within the same 2e-2 (1.5e-4 of the
+    scale on these draws); each is off the exact floored inverse by up to
+    61% of the scale there, and the 3x3 info_from_cov of the two packages
+    by as much from each other (their f32 arccos near r = 1; PERF.md), so
+    neither is held to the exact inverse, nor the 3x3 form on these cells
+    (tools/linear_cells.py finds none in the pipelines' cell
+    builds)."""
+    if case == "f32_linear_below_floor":
+        cov = _linear_below_floor(0, 400)
+        a6 = np.stack([cov[:, 0, 0], cov[:, 0, 1], cov[:, 0, 2], cov[:, 1, 1], cov[:, 1, 2], cov[:, 2, 2]], -1)
+        want = np.asarray(jeig.floored_inverse_sym6(jnp.asarray(a6), tgauss.COV_EIG_FLOOR))
+        got = nn(teig.floored_inverse_sym6(tt(a6), tgauss.COV_EIG_FLOOR))
+        assert np.all(np.abs(got - want) <= 2e-2 * np.abs(want).max(axis=1, keepdims=True))
+        return
     if case == "f32_planar_below_floor":
         cov = _planar_below_floor(0, 400)
     else:

@@ -10,12 +10,13 @@ machine that has a CUDA card and no jax:
 Every test is marked `gpu` and skips without a card.  Tolerances: sorts,
 keys, masks, counts and flags are equal (stable int64 sorts and the same
 comparisons); f32 distances within rtol 1e-6 (the same three squares);
-f32 scatter sums within rtol 1e-5 / atol 1e-6 (index_add_'s atomics sum in
-any order on the card); the f64 floored inverses within 1e-8 of their
-scale (f64's 2.2e-16 times the spectra's condition number, up to 4e6 here,
-with the card's fused multiply-adds against the CPU's separate rounding);
-the other f64 closed forms, IMU recursions and pose chains within rtol
-1e-10 / atol 1e-12.
+f32 segment sums equal bit for bit (each segment sums its members in
+order on the card as on the CPU: ops/voxel.segment_sum, whose repeats
+tests/test_torch_fixed_sums_card.py holds); the f64 floored inverses
+within 1e-8 of their scale (f64's 2.2e-16 times the spectra's condition
+number, up to 4e6 here, with the card's fused multiply-adds against the
+CPU's separate rounding); the other f64 closed forms, IMU recursions and
+pose chains within rtol 1e-10 / atol 1e-12.
 """
 
 import numpy as np
@@ -86,7 +87,7 @@ def test_gaussians_and_eig3_on_card():
     w = (rng.uniform(size=50000) > 0.2).astype(np.float32)
     (p, c, wc), (pg, cg, wg) = _both(pts, cell, w)
     for a, b in zip(gaussians.segment_mean_cov(pg, cg, wg, 300), gaussians.segment_mean_cov(p, c, wc, 300)):
-        np.testing.assert_allclose(nn(a), nn(b), rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(nn(a), nn(b))
     q, _ = np.linalg.qr(rng.standard_normal((500, 3, 3)))
     lam = np.exp(rng.uniform(np.log(1e-6), np.log(4.0), size=(500, 3)))
     # off the floor's neighbourhood: within 1e-6 of each other two

@@ -135,9 +135,9 @@ def test_preintegration():
 def test_port_never_imports_jax():
     """Every module of the port (pkgutil.walk_packages), chip_smoke.py, the
     test helpers it uses (the bag writer, the two-scan scene, the rank
-    spawner), the card tests of the remaining functions and the port's
-    tools, imported in a fresh process, pull in neither jax nor the
-    reference package."""
+    spawner), the card tests of the remaining functions and of the
+    fixed-order sums, and the port's tools, imported in a fresh process,
+    pull in neither jax nor the reference package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dmsa_lidar_slam_tpu_torch as pkg\n"
@@ -148,6 +148,8 @@ def test_port_never_imports_jax():
         "import chip_smoke, tests.torch_bag, tests.torch_scenes, tests.torch_dist\n"
         "import tools.torch_comm_analysis, tools.torch_mesh_scaling, tools.torch_micro_opt, tools.long_spans\n"
         "import tools.torch_profile, tools.kernel_calls, tests.test_torch_api_rest_card\n"
+        "import tools.torch_long_host, tools.torch_bench_diag, tools.torch_diag_window_drift\n"
+        "import tools.torch_diag_imu_bias, tests.test_torch_fixed_sums_card\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'dmsa_lidar_slam_tpu'"
         " or m.startswith('dmsa_lidar_slam_tpu.')]\n"
         "assert not bad, bad\n"

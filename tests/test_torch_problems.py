@@ -42,6 +42,7 @@ from dmsa_lidar_slam_tpu.ops import gaussians as jgauss
 from dmsa_lidar_slam_tpu_torch.dmsa import optimizer as topt
 from dmsa_lidar_slam_tpu_torch.dmsa import problems as tproblems
 from dmsa_lidar_slam_tpu_torch.ops import gaussians as tgauss
+from dmsa_lidar_slam_tpu_torch.ops import voxel
 from tests.test_torch_structured import _problems
 from tests.torch_parity import nn, tt
 from tests.torch_scenes import TWO_SCAN_PERTURBATION as PERTURBATION
@@ -109,7 +110,8 @@ def test_value_and_jacfwd_matches_reference(chunk):
         return cells, jopt.value_and_jacfwd(res, p, 128)
 
     jcells, (je, jJ) = reference(jnp.asarray(p))
-    tcells = [tgauss.CellSet(**{f: tt(getattr(c, f)) for f in tgauss.CellSet._fields}) for c in jcells]
+    tcells = [tgauss.CellSet(runs=voxel.sorted_runs(tt(c.start), torch.tensor(c.start.shape[0])),
+                             **{f: tt(getattr(c, f)) for f in tgauss.CellSet._fields if f != "runs"}) for c in jcells]
     merged = tgauss.concat_cells(tcells, 2 * ts.n_pts)
     te, tJ = topt.value_and_jacfwd(lambda q: topt.residuals(tfwd, q, merged, td), tt(p), chunk)
     assert te.shape == je.shape and tJ.shape == jJ.shape == (je.shape[0], 6)

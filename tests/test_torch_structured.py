@@ -37,6 +37,7 @@ from dmsa_lidar_slam_tpu.trajectory import continuous as jct
 from dmsa_lidar_slam_tpu_torch.dmsa import optimizer as topt
 from dmsa_lidar_slam_tpu_torch.map import keyframes as tkfm
 from dmsa_lidar_slam_tpu_torch.ops import gaussians as tgauss
+from dmsa_lidar_slam_tpu_torch.ops import voxel
 from dmsa_lidar_slam_tpu_torch.trajectory import continuous as tct
 from tests.test_torch_optimizer import _check_same, _keyframe_problem, _port_shapes, _to_port, _window_problem
 from tests.torch_parity import nn, tt
@@ -104,7 +105,8 @@ def test_structured_pieces_match_reference(kind, flag):
 
     jcells, (jres, jg), jmerged_res = reference_cells(jout)
     assert int(jcells.num_valid) > 10
-    tcells = tgauss.CellSet(**{f: tt(getattr(jcells, f)) for f in tgauss.CellSet._fields})
+    tcells = tgauss.CellSet(runs=voxel.sorted_runs(tt(jcells.start), torch.tensor(jcells.start.shape[0])),
+                            **{f: tt(getattr(jcells, f)) for f in tgauss.CellSet._fields if f != "runs"})
     tres, tg = tgauss.cell_residuals_and_grad(tout.points, tout.mask, tcells)
     _close_mostly(tres, jres)
     _close_mostly(tg, jg)
