@@ -24,6 +24,7 @@ The loop stops on the host when an iteration sets `done` (one device sync
 per iteration).
 """
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable, NamedTuple, Optional
@@ -126,48 +127,60 @@ def residuals(forward_fn, params, merged_cells, data):
     return torch.cat([res.to(rdt), out.extra.to(rdt)])
 
 
-def _iteration(forward_fn, tabular_fn, params, data, settings, min_grid_size, step_length, max_step):
+def _no_span(part):
+    return contextlib.nullcontext()
+
+
+def _iteration(forward_fn, tabular_fn, params, data, settings, min_grid_size, step_length, max_step, span=_no_span):
+    """One tabular Gauss-Newton iteration.  span(part) times its host parts:
+    "tables" (the pose tables, their jacfwd and the line search's vmap of
+    them) and "cells" (the forward, the K1 builds, K2, the solve, K3 and
+    _finish); no span sits inside a transformed function."""
     from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
 
     pdt, dev = params.dtype, params.device
     num_params = params.shape[0]
-    out = forward_fn(params, data)
-    xs, tidx = tabular_fn.point_arrays(data)
 
     def tab_fn(p):
         return tabular_fn.tables(p, data)
 
-    tab, extra0 = tab_fn(params)
-    jtab, jextra = torch.func.jacfwd(tab_fn)(params)  # [Dtab, 8, P], [E, P]
-    dtab = jtab.permute(2, 0, 1)  # [P, Dtab, 8]
-    j_extra = jextra.T  # [P, E]
+    with span("tables"):
+        tab, extra0 = tab_fn(params)
+        jtab, jextra = torch.func.jacfwd(tab_fn)(params)  # [Dtab, 8, P], [E, P]
+        dtab = jtab.permute(2, 0, 1)  # [P, Dtab, 8]
+        j_extra = jextra.T  # [P, E]
 
-    packs, nvs = [], []
-    for factor in (settings.grid_size_1_factor, settings.grid_size_2_factor):
-        if factor > 1e-30:
-            pk, nv, _ = fr.build_packed(
-                out.points, out.mask, out.ring_ids, xs, tidx, factor * min_grid_size,
-                settings.min_num_points_per_set, tab, split_ids=out.split_ids, obs_weight=out.obs_weight,
-            )
-            packs.append(pk)
-            nvs.append(nv)
-    packed = packs[0] if len(packs) == 1 else torch.cat(packs, dim=1)
-    n_gauss = sum(nv.to(torch.int64) for nv in nvs)
+    with span("cells"):
+        out = forward_fn(params, data)
+        xs, tidx = tabular_fn.point_arrays(data)
+        packs, nvs = [], []
+        for factor in (settings.grid_size_1_factor, settings.grid_size_2_factor):
+            if factor > 1e-30:
+                pk, nv, _ = fr.build_packed(
+                    out.points, out.mask, out.ring_ids, xs, tidx, factor * min_grid_size,
+                    settings.min_num_points_per_set, tab, split_ids=out.split_ids, obs_weight=out.obs_weight,
+                )
+                packs.append(pk)
+                nvs.append(nv)
+        packed = packs[0] if len(packs) == 1 else torch.cat(packs, dim=1)
+        n_gauss = sum(nv.to(torch.int64) for nv in nvs)
 
-    max_cells = packed.shape[1] // max(1, settings.min_num_points_per_set) + len(packs)
-    hext = fr.gn_system(tab, dtab, packed, max_cells=max_cells)
-    H = hext[:num_params, :num_params].to(pdt)
-    g = hext[:num_params, num_params].to(pdt)
-    je = j_extra.to(pdt)
-    H = H + je @ je.T + settings.lambda_diag * torch.eye(num_params, dtype=pdt, device=dev)
-    g = g + je @ extra0.to(pdt)
-    step, nan_step = _clipped_step(H, g, step_length, max_step)
+        max_cells = packed.shape[1] // max(1, settings.min_num_points_per_set) + len(packs)
+        hext = fr.gn_system(tab, dtab, packed, max_cells=max_cells)
+        H = hext[:num_params, :num_params].to(pdt)
+        g = hext[:num_params, num_params].to(pdt)
+        je = j_extra.to(pdt)
+        H = H + je @ je.T + settings.lambda_diag * torch.eye(num_params, dtype=pdt, device=dev)
+        g = g + je @ extra0.to(pdt)
+        step, nan_step = _clipped_step(H, g, step_length, max_step)
 
-    ks = torch.tensor(settings.line_search_fracs, dtype=pdt, device=dev)
-    cand_params = torch.cat([params[None, :], params[None, :] + ks[:, None] * step[None, :]], dim=0)
-    tabs, extras = torch.func.vmap(tab_fn)(cand_params)
-    errs = fr.cand_errors(tabs, packed).to(pdt) + torch.sum(extras.to(pdt) ** 2, dim=1)
-    return _finish(params, cand_params, errs, step, nan_step, n_gauss, settings)
+        ks = torch.tensor(settings.line_search_fracs, dtype=pdt, device=dev)
+        cand_params = torch.cat([params[None, :], params[None, :] + ks[:, None] * step[None, :]], dim=0)
+    with span("tables"):
+        tabs, extras = torch.func.vmap(tab_fn)(cand_params)
+    with span("cells"):
+        errs = fr.cand_errors(tabs, packed).to(pdt) + torch.sum(extras.to(pdt) ** 2, dim=1)
+        return _finish(params, cand_params, errs, step, nan_step, n_gauss, settings)
 
 
 def _clipped_step(H, g, step_length, max_step):
@@ -292,6 +305,8 @@ def optimize(
     max_step=None,
     tabular_fn: Optional[TabularProblem] = None,
     structured_fn: Optional[Callable] = None,
+    metrics=None,
+    name: Optional[str] = None,
 ) -> OptimResult:
     """Run the DMSA optimization on the tabular (kernel) path when
     tabular_fn is given, on the structured path when structured_fn is
@@ -301,9 +316,17 @@ def optimize(
     where contract(grad3 [N, 3]) -> [N, P] maps per-point residual
     cotangents to parameter rows.  step_length / max_step optionally
     override the settings (tensors or floats).  Centralization is the
-    caller's (it rewrites the data)."""
+    caller's (it rewrites the data).
+
+    With a pipeline.metrics.Metrics, each iteration records the spans
+    `<name>.gn.tables` and `<name>.gn.cells` (tabular path) and
+    `<name>.gn.stop` (the stop read, the host's wait on the device), and
+    the counter `<name>.gn.iters` the iterations run."""
+    def span(part):
+        return _no_span(part) if metrics is None else metrics.stage(f"{name}.gn.{part}")
+
     if tabular_fn is not None:
-        iteration = functools.partial(_iteration, forward_fn, tabular_fn)
+        iteration = functools.partial(_iteration, forward_fn, tabular_fn, span=span)
     elif structured_fn is not None:
         iteration = functools.partial(_iteration_structured, forward_fn, structured_fn)
     else:
@@ -322,8 +345,12 @@ def optimize(
         if iters == 0:
             err0 = err
         iters += 1
-        if bool(done):  # host sync: the stop decision
+        with span("stop"):
+            stop = bool(done)  # host sync: the stop decision
+        if stop:
             break
+    if metrics is not None:
+        metrics.count(f"{name}.gn.iters", iters)
     return OptimResult(
         params=params,
         num_iters=torch.tensor(iters, dtype=torch.int32, device=dev),

@@ -199,11 +199,20 @@ def submap_keyframes(c: Config, shapes: FusedShapes) -> int:
     return max(2, min(cap, shapes.kf_cap))
 
 
-def make_step(config: Config, shapes: FusedShapes, device, mesh: Optional[pmesh.Mesh] = None):
+def make_step(config: Config, shapes: FusedShapes, device, mesh: Optional[pmesh.Mesh] = None,
+              metrics: Optional[Metrics] = None):
     """Build the per-scan step: step(state, pack, aux, prio) -> state.  With
     a mesh of more than one rank the submap optimization is distributed over
-    it (the ranks outside the mesh take its result)."""
+    it (the ranks outside the mesh take its result).
+
+    The step records into `metrics` (a throwaway Metrics when None) the
+    spans step.preprocess, window.assemble, map.init, window.static,
+    window.optimize, window.decide, keyframe.cloud and keyframe.submap, the
+    optimizer's window.gn.* and submap.gn.* spans and iteration counters,
+    and the counters submap.span (keyframes per solve) and submap.params
+    (the solve's P), each summed."""
     c = config
+    m = Metrics() if metrics is None else metrics
     pdt = POSE_DTYPE
     dev = torch.device(device)
     wshapes = shapes.window
@@ -339,9 +348,11 @@ def make_step(config: Config, shapes: FusedShapes, device, mesh: Optional[pmesh.
             cov_grav_inv, odom_cov_inv, odom_cov_inv, gravity,
         )
         smin_grid = dmap.min_grid_from(state.kf, from_id)
+        m.count("submap.params", sparams.shape[0])
         overflow = None
         if mesh is None:
-            params_new = opt.optimize(kf_fwd, sparams, sdata, settings_map, smin_grid, tabular_fn=kf_tabular).params
+            params_new = opt.optimize(kf_fwd, sparams, sdata, settings_map, smin_grid, tabular_fn=kf_tabular,
+                                      metrics=m, name="submap").params
         else:
             params_new, overflow = sparams, torch.zeros((), dtype=pdt, device=dev)
             if mesh.member:
@@ -354,165 +365,179 @@ def make_step(config: Config, shapes: FusedShapes, device, mesh: Optional[pmesh.
 
     def main_window(state, data, params0, sc, prio):
         curr_pos = data.anchor_transl
-        min_grid = torch.min(state.scan_grid)
-        cand_ids, cand_valid = dmap.closest_candidates(
-            state.kf, curr_pos, shapes.n_candidates, c.dist_static_points_keyframe
-        )
-        kf_pts, kf_nrm, kf_rings, kf_mask = dmap.candidate_clouds(state.kf, cand_ids, cand_valid)
-        out0 = fwd_imu(params0, data)
-        sel = sp.select_static_points(
-            out0.points[:nw], out0.mask[:nw], kf_pts, kf_nrm, kf_rings, kf_mask,
-            curr_pos.to(_F32), min_grid, prio.static, shapes.n_static,
-        )
-        data = data._replace(static_pts=sel.static_pts, static_mask=sel.static_mask, static_ring=sel.static_ring)
-        max_overlap_kf = cand_ids[torch.argmax(sel.overlap_counts)]
-        has_sel = sel.overlap_counts > 0
-        big = torch.full_like(cand_ids, 2**31 - 1)
-        min_related = torch.where(
-            torch.any(has_sel), torch.min(torch.where(has_sel, cand_ids, big)), torch.full_like(cand_ids[0], -1)
-        )
+        with m.stage("window.static"):
+            min_grid = torch.min(state.scan_grid)
+            cand_ids, cand_valid = dmap.closest_candidates(
+                state.kf, curr_pos, shapes.n_candidates, c.dist_static_points_keyframe
+            )
+            kf_pts, kf_nrm, kf_rings, kf_mask = dmap.candidate_clouds(state.kf, cand_ids, cand_valid)
+            out0 = fwd_imu(params0, data)
+            sel = sp.select_static_points(
+                out0.points[:nw], out0.mask[:nw], kf_pts, kf_nrm, kf_rings, kf_mask,
+                curr_pos.to(_F32), min_grid, prio.static, shapes.n_static,
+            )
+            data = data._replace(static_pts=sel.static_pts, static_mask=sel.static_mask, static_ring=sel.static_ring)
+            max_overlap_kf = cand_ids[torch.argmax(sel.overlap_counts)]
+            has_sel = sel.overlap_counts > 0
+            big = torch.full_like(cand_ids, 2**31 - 1)
+            min_related = torch.where(
+                torch.any(has_sel), torch.min(torch.where(has_sel, cand_ids, big)), torch.full_like(cand_ids[0], -1)
+            )
 
-        cdata, origin = ct.centralize(data)
-        result = opt.optimize(
-            fwd_imu, params0, cdata, settings_window, min_grid,
-            step_length=sc["step_length"], max_step=sc["max_step"], tabular_fn=tabular_window,
-        )
-        data = ct.decentralize(cdata, origin)
-        params_opt = result.params
-        data_o = data._replace(static_mask=torch.zeros_like(data.static_mask))
+        with m.stage("window.optimize"):
+            cdata, origin = ct.centralize(data)
+            result = opt.optimize(
+                fwd_imu, params0, cdata, settings_window, min_grid,
+                step_length=sc["step_length"], max_step=sc["max_step"], tabular_fn=tabular_window,
+                metrics=m, name="window",
+            )
+            data = ct.decentralize(cdata, origin)
 
-        count = int(state.kf.count)  # host sync
-        last_kf_pos = state.kf.transl_w[max(count - 1, 0)]
-        dist = torch.linalg.norm(curr_pos - last_kf_pos)
-        new_kf = bool((sel.overlap_fraction < c.min_overlap_new_keyframe) | (dist > c.dist_new_keyframe))
-        min_related_adj = int(min_related) - (1 if count >= shapes.kf_cap else 0)
+        with m.stage("window.decide"):
+            params_opt = result.params
+            data_o = data._replace(static_mask=torch.zeros_like(data.static_mask))
+            count = int(state.kf.count)  # host sync
+            last_kf_pos = state.kf.transl_w[max(count - 1, 0)]
+            dist = torch.linalg.norm(curr_pos - last_kf_pos)
+            new_kf = bool((sel.overlap_fraction < c.min_overlap_new_keyframe) | (dist > c.dist_new_keyframe))
+            min_related_adj = int(min_related) - (1 if count >= shapes.kf_cap else 0)
 
-        ev = new_event()
         if new_kf:
-            out = fwd_imu(params_opt, data_o)
-            pts_local, normals, rings_out, out_mask, n_kept = make_keyframe_cloud(
-                out.points[:nw], out.mask[:nw], out.ring_ids[:nw], data_o.anchor_orient,
-                data_o.anchor_transl, min_grid, prio.keyframe,
-            )
-            grav, plaus = gravity_estimate(params_opt, data_o, sc["use_imu"])
-            kf_new, ret_o, ret_t, ret_stamp, retired = dmap.add_keyframe(
-                state.kf, data_o.anchor_transl, data_o.anchor_orient, sc["win_t0"], pts_local, normals,
-                rings_out, out_mask, min_grid, grav, plaus,
-            )
-            state = state._replace(kf=kf_new)
-            count = int(state.kf.count)
+            with m.stage("keyframe.cloud"):
+                out = fwd_imu(params_opt, data_o)
+                pts_local, normals, rings_out, out_mask, n_kept = make_keyframe_cloud(
+                    out.points[:nw], out.mask[:nw], out.ring_ids[:nw], data_o.anchor_orient,
+                    data_o.anchor_transl, min_grid, prio.keyframe,
+                )
+                grav, plaus = gravity_estimate(params_opt, data_o, sc["use_imu"])
+                kf_new, ret_o, ret_t, ret_stamp, retired = dmap.add_keyframe(
+                    state.kf, data_o.anchor_transl, data_o.anchor_orient, sc["win_t0"], pts_local, normals,
+                    rings_out, out_mask, min_grid, grav, plaus,
+                )
+                state = state._replace(kf=kf_new)
+                count = int(state.kf.count)
             run_submap = c.optimize_sliding_window_keyframes and min_related_adj >= 0 and count >= 3
             span_from = max(max(min_related_adj, 0), count - S_sub)
             submap_span = count - span_from if run_submap else 0
             shuffle_ov = None
             if run_submap:
-                state, shuffle_ov = do_submap(state, min_related_adj)
-            last = max(count - 1, 0)
-            data_o = data_o._replace(anchor_orient=state.kf.orient_w[last], anchor_transl=state.kf.transl_w[last])
-            ev[0] = EV_KEYFRAME
-            ev[1:4] = data_o.anchor_orient.to(_F32)
-            ev[4:7] = data_o.anchor_transl.to(_F32)
-            ev[7] = float(submap_span)
-            ev[8] = retired.to(_F32)
-            ev[9:12] = ret_o.to(_F32)
-            ev[12:15] = ret_t.to(_F32)
-            ev[19] = n_kept.to(_F32)
-            ev[22] = plaus.to(_F32)
-            rs_hi = ret_stamp.to(_F32)
-            ev[21] = rs_hi
-            ev[23] = (ret_stamp - rs_hi.to(torch.float64)).to(_F32)
-            if shuffle_ov is not None:
-                ev[24] = shuffle_ov.to(_F32)
-        else:
-            kf_o = state.kf.orient_w[max_overlap_kf]
-            kf_t = state.kf.transl_w[max_overlap_kf]
-            R_kf = rot.axang2rotm(kf_o)
-            rel_t = R_kf.T @ (curr_pos - kf_t)
-            rel_o = rot.rotm2axang(R_kf.T @ rot.axang2rotm(data_o.anchor_orient))
-            ev[0] = EV_NONKEYFRAME
-            ev[1:4] = rel_o.to(_F32)
-            ev[4:7] = rel_t.to(_F32)
-            ev[7] = max_overlap_kf.to(_F32)
+                m.count("submap.span", submap_span)
+                with m.stage("keyframe.submap"):
+                    state, shuffle_ov = do_submap(state, min_related_adj)
 
-        state = store_old_window(state, params_opt, data_o)
-        ev[15] = sel.overlap_fraction.to(_F32)
-        ev[16] = result.stop_reason.to(_F32)
-        ev[17] = result.num_gaussians.to(_F32)
-        ev[18] = sel.num_active.to(_F32)
-        ev[20] = min_grid
+        with m.stage("window.decide"):
+            ev = new_event()
+            if new_kf:
+                last = max(count - 1, 0)
+                data_o = data_o._replace(anchor_orient=state.kf.orient_w[last], anchor_transl=state.kf.transl_w[last])
+                ev[0] = EV_KEYFRAME
+                ev[1:4] = data_o.anchor_orient.to(_F32)
+                ev[4:7] = data_o.anchor_transl.to(_F32)
+                ev[7] = float(submap_span)
+                ev[8] = retired.to(_F32)
+                ev[9:12] = ret_o.to(_F32)
+                ev[12:15] = ret_t.to(_F32)
+                ev[19] = n_kept.to(_F32)
+                ev[22] = plaus.to(_F32)
+                rs_hi = ret_stamp.to(_F32)
+                ev[21] = rs_hi
+                ev[23] = (ret_stamp - rs_hi.to(torch.float64)).to(_F32)
+                if shuffle_ov is not None:
+                    ev[24] = shuffle_ov.to(_F32)
+            else:
+                kf_o = state.kf.orient_w[max_overlap_kf]
+                kf_t = state.kf.transl_w[max_overlap_kf]
+                R_kf = rot.axang2rotm(kf_o)
+                rel_t = R_kf.T @ (curr_pos - kf_t)
+                rel_o = rot.rotm2axang(R_kf.T @ rot.axang2rotm(data_o.anchor_orient))
+                ev[0] = EV_NONKEYFRAME
+                ev[1:4] = rel_o.to(_F32)
+                ev[4:7] = rel_t.to(_F32)
+                ev[7] = max_overlap_kf.to(_F32)
+
+            state = store_old_window(state, params_opt, data_o)
+            ev[15] = sel.overlap_fraction.to(_F32)
+            ev[16] = result.stop_reason.to(_F32)
+            ev[17] = result.num_gaussians.to(_F32)
+            ev[18] = sel.num_active.to(_F32)
+            ev[20] = min_grid
         return state, ev
 
     def window_step(state, sc, acc_dense, gyr_dense, shift_t0, prio):
-        data = assemble_window(state, sc, acc_dense, gyr_dense)
-        if bool(state.submap_initialized):  # host sync
-            chain0 = traced_initial_guess(
-                state.ow_orient, state.ow_transl, state.ow_stamps, shift_t0, state.ow_horizon,
-                data.ctrl_stamps, data.preint_rot, data.preint_vel, data.preint_pos,
-                data.ctrl_stamps[1:] - data.ctrl_stamps[:-1], gravity, sc["use_imu"],
-            )
-        else:
-            acc_for_init = torch.where(sc["acc_init_valid"], sc["acc_init"], data.acc_dense[0])
-            anchor_o = torch.where(
-                sc["use_imu"], ct.init_gravity_anchor_orientation(acc_for_init, gravity),
-                torch.zeros(3, dtype=pdt, device=dev),
-            )
-            chain0 = cp.PoseChain(
-                orient=torch.cat([anchor_o[None], torch.zeros(C - 1, 3, dtype=pdt, device=dev)]),
-                transl=torch.zeros(C, 3, dtype=pdt, device=dev),
-            )
-        data = data._replace(anchor_orient=chain0.orient[0], anchor_transl=chain0.transl[0])
-        params0 = cp.params_from_chain(chain0)
-        if int(state.kf.count) > 0:  # host sync
+        with m.stage("window.assemble"):
+            data = assemble_window(state, sc, acc_dense, gyr_dense)
+            if bool(state.submap_initialized):  # host sync
+                chain0 = traced_initial_guess(
+                    state.ow_orient, state.ow_transl, state.ow_stamps, shift_t0, state.ow_horizon,
+                    data.ctrl_stamps, data.preint_rot, data.preint_vel, data.preint_pos,
+                    data.ctrl_stamps[1:] - data.ctrl_stamps[:-1], gravity, sc["use_imu"],
+                )
+            else:
+                acc_for_init = torch.where(sc["acc_init_valid"], sc["acc_init"], data.acc_dense[0])
+                anchor_o = torch.where(
+                    sc["use_imu"], ct.init_gravity_anchor_orientation(acc_for_init, gravity),
+                    torch.zeros(3, dtype=pdt, device=dev),
+                )
+                chain0 = cp.PoseChain(
+                    orient=torch.cat([anchor_o[None], torch.zeros(C - 1, 3, dtype=pdt, device=dev)]),
+                    transl=torch.zeros(C, 3, dtype=pdt, device=dev),
+                )
+            data = data._replace(anchor_orient=chain0.orient[0], anchor_transl=chain0.transl[0])
+            params0 = cp.params_from_chain(chain0)
+            map_ready = int(state.kf.count) > 0  # host sync
+        if map_ready:
             return main_window(state, data, params0, sc, prio)
-        return init_map(state, data, params0, sc)
+        with m.stage("map.init"):
+            return init_map(state, data, params0, sc)
 
     def step(state: FusedState, pack, aux, prio: StepPriorities) -> FusedState:
         """pack int16 [raw_cap, 5] (xyz at 5 mm, stamp u16, ring); aux f32
         [n_dense + 4, 6] (the reference's layout, fused.py make_step)."""
-        rc, D, S = shapes.raw_cap, shapes.n_dense, shapes.n_clouds
-        imu_rows, srow, trow, xrow, grow = aux[:D], aux[D], aux[D + 1], aux[D + 2], aux[D + 3]
-        acc_dense = imu_rows[:, :3].to(pdt)
-        gyr_dense = imu_rows[:, 3:].to(pdt)
-        sc = dict(
-            dt=srow[0].to(pdt),
-            horizon=srow[1].to(pdt),
-            scan_t0_rel=trow[:S],
-            use_imu=srow[2] > 0.5,
-            step_length=srow[3].to(pdt),
-            max_step=srow[4].to(pdt),
-            balancing_imu=srow[5].to(pdt),
-            win_t0=xrow[2].to(torch.float64) + xrow[3].to(torch.float64),
-            acc_init=grow[:3].to(pdt),
-            acc_init_valid=grow[3] > 0.5,
-        )
-        shift_t0 = xrow[0].to(pdt)
+        with m.stage("step.preprocess"):
+            rc, D, S = shapes.raw_cap, shapes.n_dense, shapes.n_clouds
+            imu_rows, srow, trow, xrow, grow = aux[:D], aux[D], aux[D + 1], aux[D + 2], aux[D + 3]
+            acc_dense = imu_rows[:, :3].to(pdt)
+            gyr_dense = imu_rows[:, 3:].to(pdt)
+            sc = dict(
+                dt=srow[0].to(pdt),
+                horizon=srow[1].to(pdt),
+                scan_t0_rel=trow[:S],
+                use_imu=srow[2] > 0.5,
+                step_length=srow[3].to(pdt),
+                max_step=srow[4].to(pdt),
+                balancing_imu=srow[5].to(pdt),
+                win_t0=xrow[2].to(torch.float64) + xrow[3].to(torch.float64),
+                acc_init=grow[:3].to(pdt),
+                acc_init_valid=grow[3] > 0.5,
+            )
+            shift_t0 = xrow[0].to(pdt)
 
-        raw_pts = pack[:, :3].to(_F32) * PT_SCALE
-        qscale = grow[5].to(_F32)
-        raw_rel = (pack[:, 3].to(torch.int32) & 0xFFFF).to(_F32) * qscale
-        raw_rings = pack[:, 4].to(torch.int32)
-        raw_mask = torch.arange(rc, device=dev) < grow[4].to(torch.int64)
+            raw_pts = pack[:, :3].to(_F32) * PT_SCALE
+            qscale = grow[5].to(_F32)
+            raw_rel = (pack[:, 3].to(torch.int32) & 0xFFFF).to(_F32) * qscale
+            raw_rings = pack[:, 4].to(torch.int32)
+            raw_mask = torch.arange(rc, device=dev) < grow[4].to(torch.int64)
 
-        res = pp.preprocess_scan(
-            raw_pts, raw_mask, prio.preprocess, c.max_num_points_per_scan, c.min_dist_ds, c.min_dist,
-            shapes.scan_cap,
-        )
-        new_pts = pp.transform_to_imu(raw_pts[res.indices], R_l2i, t_l2i)
-        new_pts = torch.where(res.mask[:, None], new_pts, torch.zeros_like(new_pts))
-        new_rel = torch.where(res.mask, raw_rel[res.indices], torch.zeros_like(raw_rel[res.indices]))
-        new_rings = torch.where(res.mask, raw_rings[res.indices], torch.zeros_like(raw_rings[res.indices]))
+            res = pp.preprocess_scan(
+                raw_pts, raw_mask, prio.preprocess, c.max_num_points_per_scan, c.min_dist_ds, c.min_dist,
+                shapes.scan_cap,
+            )
+            new_pts = pp.transform_to_imu(raw_pts[res.indices], R_l2i, t_l2i)
+            new_pts = torch.where(res.mask[:, None], new_pts, torch.zeros_like(new_pts))
+            new_rel = torch.where(res.mask, raw_rel[res.indices], torch.zeros_like(raw_rel[res.indices]))
+            new_rings = torch.where(res.mask, raw_rings[res.indices], torch.zeros_like(raw_rings[res.indices]))
 
-        n_scans = int(state.num_scans)  # host sync
-        full = n_scans >= S
-        slot = S - 1 if full else n_scans
-        state = state._replace(
-            scan_pts=_roll_push(state.scan_pts, new_pts, full, slot),
-            scan_mask=_roll_push(state.scan_mask, res.mask, full, slot),
-            scan_rings=_roll_push(state.scan_rings, new_rings, full, slot),
-            scan_rel_stamps=_roll_push(state.scan_rel_stamps, new_rel, full, slot),
-            scan_grid=_roll_push(state.scan_grid, res.grid_size, full, slot),
-            num_scans=torch.clamp(state.num_scans + 1, max=S),
-        )
+            n_scans = int(state.num_scans)  # host sync
+            full = n_scans >= S
+            slot = S - 1 if full else n_scans
+            state = state._replace(
+                scan_pts=_roll_push(state.scan_pts, new_pts, full, slot),
+                scan_mask=_roll_push(state.scan_mask, res.mask, full, slot),
+                scan_rings=_roll_push(state.scan_rings, new_rings, full, slot),
+                scan_rel_stamps=_roll_push(state.scan_rel_stamps, new_rel, full, slot),
+                scan_grid=_roll_push(state.scan_grid, res.grid_size, full, slot),
+                num_scans=torch.clamp(state.num_scans + 1, max=S),
+            )
         if min(n_scans + 1, S) >= S:
             state, ev = window_step(state, sc, acc_dense, gyr_dense, shift_t0, prio)
         else:
@@ -543,11 +568,11 @@ class FusedDmsaSlam:
                 self.mesh = mesh
             else:
                 log.warning("distributed_keyframe_opt requested but only 1 usable device")
-        self.step = make_step(self.config, self.shapes, self.device, mesh=self.mesh)
+        self.metrics = Metrics()
+        self.step = make_step(self.config, self.shapes, self.device, mesh=self.mesh, metrics=self.metrics)
         self.state = empty_state(self.shapes, self.device)
         self.imu_buffer = ImuBuffer()
         self.output = OutputManager()
-        self.metrics = Metrics()
         # tests may replace this to inject priorities (e.g. the reference's)
         self.priorities = lambda seed: draw_priorities(seed, self.shapes, self.device)
 
@@ -587,12 +612,14 @@ class FusedDmsaSlam:
         if not self.time_initialized:
             self.metrics.start_clock(float(stamps.min()))
             self.time_initialized = True
+        ratio = self.metrics.realtime_ratio(float(stamps[0]))
+        if self.scan_counter % 10 == 0:
+            log.info("realtime ratio %.2fx at scan %d", ratio, self.scan_counter)
         if self.buffered_scan is None:
             self.buffered_scan = (points, stamps, rings)
             return
         to_process, self.buffered_scan = self.buffered_scan, (points, stamps, rings)
-        with self.metrics.stage("dispatch"):
-            self._dispatch(*to_process)
+        self._dispatch(*to_process)
         self.scan_counter += 1
         if self.scan_counter - self._flushed_upto >= self.flush_every:
             with self.metrics.stage("flush"):
@@ -686,7 +713,7 @@ class FusedDmsaSlam:
         with self.metrics.stage("upload"):
             pack_dev = torch.from_numpy(pack).to(self.device, non_blocking=True)
             aux_dev = torch.from_numpy(aux).to(self.device, non_blocking=True)
-        with self.metrics.stage("step"):
+        with self.metrics.stage("step", args=str(self.scan_counter)):
             self.state = self.step(self.state, pack_dev, aux_dev, self.priorities(seed))
 
     # ------------------------------------------------------------- events

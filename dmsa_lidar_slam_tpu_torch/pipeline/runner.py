@@ -16,6 +16,16 @@ same program on the same bag, the keyframe submap optimization spreads over
 the ranks (parallel.launch: NCCL, one card per rank), and only rank 0
 writes Poses.txt, PointCloud.pcd and the viewers: the ranks are replicas.
 Without torchrun's environment the flag runs on this one process.
+
+The pipeline's host spans and counters (pipeline.metrics.Metrics: for the
+fused pipeline the wrapper's pack_fill / upload / step / flush, the step's
+own spans, the optimizer's <name>.gn.* spans and iteration counters, the
+submap counters) are the operator's to read three ways: the closing
+"stage timings" log line (total and self seconds, calls and enclosing span
+of each span, each counter's count), the --profile trace (each span a
+named range on the profiler's clock, nested as it ran, beside the kernels
+it launched; the step's range carries the scan counter), and
+tools/torch_profile.py (its JSON line's `stages`).
 """
 
 import argparse
@@ -52,7 +62,7 @@ def save_outputs(slam, result_dir: str, with_viz: bool = False):
 
 def _profiler(profile_dir):
     """torch.profiler over the whole run, written as a Chrome trace into
-    profile_dir (host stages are named by pipeline.metrics)."""
+    profile_dir (host spans are named by pipeline.metrics)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 

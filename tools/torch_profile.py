@@ -34,6 +34,9 @@ line:
                        trace takes seconds per 10^5 launches, so keep
                        --profile small;
   launches             the port's own kernel counters over the whole run;
+  stages               the pipeline's host spans and counters
+                       (pipeline/metrics.py Metrics.summary()) over the
+                       whole run;
   keyframes_profiled   keyframes added during the profiled scans;
   k1_masked_share      with --mask-share (fused pipeline): per K1 input
                        size n, the K1 calls and the share of their n slots
@@ -175,6 +178,7 @@ def main(argv=None):
         wall_ms_per_scan=1000.0 * sum(timed) / max(len(timed), 1),
         **prof_out,
         launches=dict(cuda_lib.LAUNCHES),
+        stages=slam.metrics.summary(),
         **({"k1_masked_share": {n: dict(calls=c, masked_share=1.0 - v / s) for n, (c, s, v) in sorted(masks.items())}}
            if args.mask_share else {}),
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
