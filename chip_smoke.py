@@ -30,6 +30,10 @@ printed on its own lines and none of them caught:
      launches are cuda_lib.BRANCHES["build_rows12"]); K5 with its radius
      as a host number (the host pipeline's form) and as an f32 card scalar
      (the fused pipeline's), bit for bit the same, and timed both ways;
+     K6 (the window's pose tables, port-only) in both modes at the window's
+     shape (P = 30, K = 15 candidates, n_dense = 501, IMU residuals)
+     against the torch.func path it replaces (its plain version, timed as
+     plain_ms), bit for bit against a second call;
   3. the fused pipeline: FusedDmsaSlam on bench_sequence(3) with
      bench_config(), 50 scans of 20,000 points.  Launch counters are zeroed
      just before and read just after; every kernel must have run,
@@ -264,6 +268,7 @@ LONG_SUBMAP_MASKED_SHARE = 0.286
 # two thirds of that
 LONG_HOST_SCANS = 40
 ROWS12_SEED = 40  # K1's 12-row rows (phase 2)
+K6_SEED = 60  # K6's window (phase 2)
 # phase (i): the weights' seed; one iteration through the kernels against
 # the same iteration through their plain versions: parameters within
 # WEIGHTED_ITER_TOL, a tenth of what the weights themselves move one
@@ -615,6 +620,56 @@ def rows12_rows(results, calls, device):
             "" if masked == 0.05 else f", masked={masked}"))
 
 
+def _k6_error(got, want):
+    """K6 against its plain version: the largest of the tables' absolute
+    error, the f64 residuals' error relative to their scale and, in the
+    jacobian mode, each parameter's table column relative to its largest
+    entry and the residuals' tangents relative to their scale."""
+    def rel(g, w):
+        return float((g - w).abs().max() / w.abs().max().clamp(min=1e-300)) if w.numel() else 0.0
+
+    errs = [float((got[0] - want[0]).abs().max()), rel(got[1], want[1])]
+    if len(got) == 4:
+        dtab, r_dtab = got[2].flatten(1), want[2].flatten(1)
+        errs.append(float(((dtab - r_dtab).abs().amax(1) / r_dtab.abs().amax(1).clamp(min=1e-30)).max()))
+        errs.append(rel(got[3], want[3]))
+    return max(errs)
+
+
+def k6_rows(results, calls, device):
+    """K6 at the window's shape in both modes (the tables and their
+    Jacobian at P = 30; the tables at the line search's K = 15 candidates)
+    against the torch.func path it replaces, twice for the bits, and
+    timed."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.trajectory import continuous as ct
+    from tests.torch_window import candidates, window_problem
+
+    shapes, data, params = window_problem(K6_SEED, device=device)
+    cands = candidates(params, K6_SEED)
+    d, c, k, p_dim = shapes.n_dense, shapes.n_ctrl, cands.shape[0], params.shape[0]
+    e = c - 1
+    # bytes: the constant operators (A, left, right, u) and the IMU
+    # factors in, the tables (and the Jacobian) out, each once
+    consts = 8 * d * c + 24 * d + 8 * (2 * 3 + 1 + c + 3 + 9 * e + 6 * e + 81 * e + 1)
+    for mode, fn, plain, n_bytes, label in (
+        ("jacobian", lambda: ct.window_tables(params, data, shapes, True),
+         lambda: ct.window_tables_ref(params, data, shapes, True),
+         8 * p_dim + consts + 32 * (d + 1) * (1 + p_dim) + 8 * e * (1 + p_dim), f"jacobian P={p_dim} D={d + 1}"),
+        ("batch", lambda: ct.window_tables_batch(cands, data, shapes, True),
+         lambda: ct.window_tables_batch_ref(cands, data, shapes, True),
+         8 * k * p_dim + consts + 32 * (d + 1) * k + 8 * e * k, f"batch K={k} D={d + 1}"),
+    ):
+        got = fn()
+        assert all(torch.equal(a, b) for a, b in zip(got, fn())), f"K6 {mode}: not repeatable"
+        want = plain()
+        torch.cuda.synchronize()
+        _record(results, calls, "window_tables", "dmsa_lidar_slam_tpu_torch/csrc/k6_window_tables.cu",
+                "none (port-only): torch.func jacfwd / vmap over trajectory/continuous.py _window_tables",
+                _k6_error(got, want), 1e-6, fn, 20, plain, 3, label, n_bytes, 0)
+
+
 def kernel_checks(device):
     import numpy as np
     import torch
@@ -676,6 +731,9 @@ def kernel_checks(device):
     # weights and the split channel, at 5% and at the window's real masked
     # share, each from its own seed (the rows above keep their inputs)
     rows12_rows(results, calls, device)
+
+    # K6 at the window's shape, both modes
+    k6_rows(results, calls, device)
 
     # K4 at the two static-point queries of a bench scan
     for n_ref, n_q in ((20480, 12288), (8192, 20480)):
@@ -1037,10 +1095,11 @@ def trace_phase(device, data, ckpt_path):
     missing = sorted(k for k in in_profile if in_trace.get(k, 0.0) <= 0.0)
     assert not missing, f"csrc kernels with no time in the trace: {missing}"
     wrappers = {"build_packed": "k1_build.cu", "gn_system": "k2_gn.cu", "cand_errors": "k3_cand.cu",
-                "min_sq_dist": "k4_nn.cu", "radius_neighbor_moments": "k5_moments.cu"}
+                "min_sq_dist": "k4_nn.cu", "radius_neighbor_moments": "k5_moments.cu",
+                "window_tables": "k6_window_tables.cu"}
     for w in launched:
         assert any(sources.get(k) == wrappers[w] for k in in_trace), f"no {wrappers[w]} kernel in the trace"
-    assert {"build_packed", "gn_system", "cand_errors", "min_sq_dist"} <= launched, launched
+    assert {"build_packed", "gn_system", "cand_errors", "min_sq_dist", "window_tables"} <= launched, launched
     return busy / TRACE_SCANS
 
 

@@ -8,8 +8,10 @@ damped step with an infinity-norm clip, and run the line search.
 
   - tabular path (the fused pipeline): cell build K1, normal equations K2,
     line search over candidate 0 (the unstepped params) plus the step
-    fractions K3.  The table Jacobian comes from torch.func.jacfwd over the
-    table builder, the candidate tables from torch.func.vmap;
+    fractions K3.  The table Jacobian comes from the problem's tables_jac
+    (the window's: K6 on the card), by default from torch.func.jacfwd over
+    the table builder; the candidate tables from its tables_batch, by
+    default from torch.func.vmap;
   - structured path (the host pipeline): gaussians.build_cells, the closed
     form per-point residual gradient contracted against the problem's
     pose-table Jacobian (torch.func.jacfwd over the small table graph),
@@ -56,11 +58,20 @@ class TabularProblem(NamedTuple):
     n_table       table rows including the trailing identity row
     tables        (params, data) -> (tab [n_table, 8] f32, extra [E])
     point_arrays  data -> (xs [N, 3] f32, tidx [N] int64)
+    tables_jac    (params, data) -> (tab, extra, dtab [P, n_table, 8] f32,
+                  j_extra [P, E]); default: torch.func.jacfwd over `tables`
+    tables_batch  (cand_params [K, P], data) -> (tabs [K, n_table, 8] f32,
+                  extras [K, E]); default: torch.func.vmap over `tables`
+    forward_tab   (tab, extra, data) -> ForwardOut at the table's params;
+                  default: the optimizer's forward function at the params
     """
 
     n_table: int
     tables: Callable
     point_arrays: Callable
+    tables_jac: Optional[Callable] = None
+    tables_batch: Optional[Callable] = None
+    forward_tab: Optional[Callable] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +127,15 @@ def value_and_jacfwd(fn: Callable, params: torch.Tensor, chunk: int):
     return e0, torch.cat(cols, dim=0).T
 
 
+def tables_and_jacobian(tab_fn, params):
+    """(tab [Dtab, 8], extra [E], dtab [P, Dtab, 8], j_extra [P, E]): a
+    table builder's tables at params and their Jacobian by
+    torch.func.jacfwd."""
+    tab, extra = tab_fn(params)
+    jtab, jextra = torch.func.jacfwd(tab_fn)(params)  # [Dtab, 8, P], [E, P]
+    return tab, extra, jtab.permute(2, 0, 1), jextra.T
+
+
 def residuals(forward_fn, params, merged_cells, data):
     """Residual vector over the merged per-resolution cell layout (one pass
     instead of one per resolution).  Its squared total equals the per-
@@ -133,9 +153,9 @@ def _no_span(part):
 
 def _iteration(forward_fn, tabular_fn, params, data, settings, min_grid_size, step_length, max_step, span=_no_span):
     """One tabular Gauss-Newton iteration.  span(part) times its host parts:
-    "tables" (the pose tables, their jacfwd and the line search's vmap of
-    them) and "cells" (the forward, the K1 builds, K2, the solve, K3 and
-    _finish); no span sits inside a transformed function."""
+    "tables" (the pose tables and their Jacobian, and the line search's
+    candidate tables) and "cells" (the forward, the K1 builds, K2, the
+    solve, K3 and _finish); no span sits inside a transformed function."""
     from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
 
     pdt, dev = params.dtype, params.device
@@ -144,14 +164,15 @@ def _iteration(forward_fn, tabular_fn, params, data, settings, min_grid_size, st
     def tab_fn(p):
         return tabular_fn.tables(p, data)
 
+    tables_jac = tabular_fn.tables_jac or (lambda p, _: tables_and_jacobian(tab_fn, p))
+    tables_batch = tabular_fn.tables_batch or (lambda cands, _: torch.func.vmap(tab_fn)(cands))
+    forward_tab = tabular_fn.forward_tab or (lambda tab, extra, d: forward_fn(params, d))
+
     with span("tables"):
-        tab, extra0 = tab_fn(params)
-        jtab, jextra = torch.func.jacfwd(tab_fn)(params)  # [Dtab, 8, P], [E, P]
-        dtab = jtab.permute(2, 0, 1)  # [P, Dtab, 8]
-        j_extra = jextra.T  # [P, E]
+        tab, extra0, dtab, j_extra = tables_jac(params, data)
 
     with span("cells"):
-        out = forward_fn(params, data)
+        out = forward_tab(tab, extra0, data)
         xs, tidx = tabular_fn.point_arrays(data)
         packs, nvs = [], []
         for factor in (settings.grid_size_1_factor, settings.grid_size_2_factor):
@@ -177,7 +198,7 @@ def _iteration(forward_fn, tabular_fn, params, data, settings, min_grid_size, st
         ks = torch.tensor(settings.line_search_fracs, dtype=pdt, device=dev)
         cand_params = torch.cat([params[None, :], params[None, :] + ks[:, None] * step[None, :]], dim=0)
     with span("tables"):
-        tabs, extras = torch.func.vmap(tab_fn)(cand_params)
+        tabs, extras = tables_batch(cand_params, data)
     with span("cells"):
         errs = fr.cand_errors(tabs, packed).to(pdt) + torch.sum(extras.to(pdt) ** 2, dim=1)
         return _finish(params, cand_params, errs, step, nan_step, n_gauss, settings)
@@ -320,8 +341,11 @@ def optimize(
 
     With a pipeline.metrics.Metrics, each iteration records the spans
     `<name>.gn.tables` and `<name>.gn.cells` (tabular path) and
-    `<name>.gn.stop` (the stop read, the host's wait on the device), and
-    the counter `<name>.gn.iters` the iterations run."""
+    `<name>.gn.stop` (the stop read, the host's wait on the device), the
+    counter `<name>.gn.iters` the iterations run, and, for a problem that
+    supplies tables_jac, `<name>.gn.tables_kernel` the calls of its own
+    tables_jac and tables_batch made on CUDA tensors (two an iteration on
+    the card, 0 on the CPU)."""
     def span(part):
         return _no_span(part) if metrics is None else metrics.stage(f"{name}.gn.{part}")
 
@@ -351,6 +375,8 @@ def optimize(
             break
     if metrics is not None:
         metrics.count(f"{name}.gn.iters", iters)
+        if tabular_fn is not None and tabular_fn.tables_jac is not None:
+            metrics.count(f"{name}.gn.tables_kernel", 2 * iters if params0.is_cuda else 0)
     return OptimResult(
         params=params,
         num_iters=torch.tensor(iters, dtype=torch.int32, device=dev),

@@ -31,6 +31,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinf
 
 LAUNCHES = {
     "build_packed": 0, "gn_system": 0, "cand_errors": 0, "min_sq_dist": 0, "radius_neighbor_moments": 0,
+    "window_tables": 0,
 }
 BRANCHES = {"gn_system_dense_j": 0, "build_rows12": 0}
 BUILD_SECONDS = None  # wall time of the last nvcc build (None: none ran)
@@ -61,6 +62,9 @@ _SIGNATURES = {
     "k4_min_sq_dist": [_P, _P, _I, _P, _P, _I, _P, _P],
     # pts, valid, n, rho_host, rho, part, cnt, mean, cov, stream
     "k5_radius_moments": [_P, _P, _I, _F, _P, _P, _P, _P, _P, _P],
+    # params, n_sets, P, C, D, use_imu, anchor_o, anchor_t, A, left, right, u, dt, stamps, gravity,
+    # prot, pvel, ppos, cov, bal, tab, extra, dtab, jextra, stream
+    "k6_window_tables": [_P, _I, _I, _I, _I, _I, *[_P] * 14, _P, _P, _P, _P, _P],
 }
 
 _lib = None

@@ -17,8 +17,9 @@ import torch
 from dmsa_lidar_slam_tpu_torch.core import interpolation as interp
 from dmsa_lidar_slam_tpu_torch.core import poses as cp
 from dmsa_lidar_slam_tpu_torch.core import rotations as rot
-from dmsa_lidar_slam_tpu_torch.dmsa.optimizer import ForwardOut, TabularProblem
+from dmsa_lidar_slam_tpu_torch.dmsa.optimizer import ForwardOut, TabularProblem, tables_and_jacobian
 from dmsa_lidar_slam_tpu_torch.imu import preintegration as preint_mod
+from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
 
 GRAVITY_W = (0.0, 0.0, -9.805)  # ContinuousTrajectory.h:345
 
@@ -150,17 +151,118 @@ def _window_point_arrays(data: WindowData, shapes: WindowShapes):
     return xs, tidx
 
 
+def _table_forward(tab, extra, data: WindowData, shapes: WindowShapes) -> ForwardOut:
+    xs, tidx = _window_point_arrays(data, shapes)
+    pts = rot.quat_rotate(tab[tidx, 0:4], xs) + tab[tidx, 4:7]
+    mask = torch.cat([data.pt_mask, data.static_mask])
+    rings = torch.cat([data.pt_ring, data.static_ring])
+    return ForwardOut(points=pts, mask=mask, ring_ids=rings, extra=extra)
+
+
+# K6 (csrc/k6_window_tables.cu, a port-only kernel: the JAX package leaves
+# this graph to XLA inside its jitted step): the tables of _window_tables
+# with their forward-mode Jacobian, and the same tables at the line search's
+# candidates, one launch each for CUDA tensors; for CPU tensors the plain
+# path the kernel replaces (the *_ref twins: torch.func's jacfwd and vmap
+# over _window_tables).  On the card the wrappers enqueue nothing but the
+# launch and its output allocations, and never wait for the card.
+K6_MAX_CTRL = 16  # control poses the kernel takes (its shared-memory chain)
+
+
+def window_tables(params, data: WindowData, shapes: WindowShapes, use_imu: bool):
+    """(tab [D+1, 8] f32, extra [E] f64, dtab [P, D+1, 8] f32, j_extra
+    [P, E] f64): the window's tables at params [P] and their Jacobian;
+    E = n_ctrl - 1 with the IMU residuals, else 0."""
+    if not params.is_cuda:
+        return window_tables_ref(params, data, shapes, use_imu)
+    p_dim, rows, e = params.shape[0], shapes.n_dense + 1, _n_extra(shapes, use_imu)
+    dev = params.device
+    tab = torch.empty((rows, 8), dtype=torch.float32, device=dev)
+    extra = torch.empty(e, dtype=torch.float64, device=dev)
+    dtab = torch.empty((p_dim, rows, 8), dtype=torch.float32, device=dev)
+    j_extra = torch.empty((p_dim, e), dtype=torch.float64, device=dev)
+    _k6_launch(params, 0, data, shapes, use_imu, tab, extra, dtab, j_extra)
+    return tab, extra, dtab, j_extra
+
+
+def window_tables_batch(cand_params, data: WindowData, shapes: WindowShapes, use_imu: bool):
+    """(tabs [K, D+1, 8] f32, extras [K, E] f64): the window's tables at
+    each row of cand_params [K, P]."""
+    if not cand_params.is_cuda:
+        return window_tables_batch_ref(cand_params, data, shapes, use_imu)
+    k, dev = cand_params.shape[0], cand_params.device
+    tabs = torch.empty((k, shapes.n_dense + 1, 8), dtype=torch.float32, device=dev)
+    extras = torch.empty((k, _n_extra(shapes, use_imu)), dtype=torch.float64, device=dev)
+    _k6_launch(cand_params, k, data, shapes, use_imu, tabs, extras, None, None)
+    return tabs, extras
+
+
+def window_tables_ref(params, data: WindowData, shapes: WindowShapes, use_imu: bool):
+    return tables_and_jacobian(lambda p: _window_tables(p, data, shapes, use_imu), params)
+
+
+def window_tables_batch_ref(cand_params, data: WindowData, shapes: WindowShapes, use_imu: bool):
+    return torch.func.vmap(lambda p: _window_tables(p, data, shapes, use_imu))(cand_params)
+
+
+@lru_cache(maxsize=None)
+def grid_consts(shapes: WindowShapes, device):
+    """The dense grid's interpolation operators (A [D, C] f64, left [D],
+    right [D], u [D] f64) on `device`, made here and not taken from
+    _uniform_consts: that cache keeps what a torch.func transform made when
+    it was first filled inside one, tensors with no storage for a kernel to
+    read."""
+    a_mat, left, right, u = _uniform_consts_np(shapes)
+    return (torch.as_tensor(a_mat, dtype=torch.float64, device=device), torch.as_tensor(left, device=device),
+            torch.as_tensor(right, device=device), torch.as_tensor(u, dtype=torch.float64, device=device))
+
+
+def _n_extra(shapes, use_imu):
+    return shapes.n_ctrl - 1 if use_imu else 0
+
+
+def _k6_launch(params, n_sets, data, shapes, use_imu, tab, extra, dtab, j_extra):
+    dev = params.device
+    c, d = shapes.n_ctrl, shapes.n_dense
+    p_dim, e = 6 * (c - 1), c - 1
+    if not 2 <= c <= K6_MAX_CTRL:
+        raise ValueError(f"window_tables: {c} control poses, the kernel takes 2..{K6_MAX_CTRL}")
+    params = params.contiguous()
+    cuda_lib.require(params, "params", torch.float64, (n_sets, p_dim) if n_sets else (p_dim,), dev)
+    a_mat, left, right, u = grid_consts(shapes, dev)
+    operands = [(data.anchor_orient, "anchor_orient", (3,)), (data.anchor_transl, "anchor_transl", (3,)),
+                (a_mat, "A", (d, c)), (left, "left", (d,)), (right, "right", (d,)), (u, "u", (d,))]
+    if use_imu:
+        operands += [
+            (data.dt, "dt", ()), (data.ctrl_stamps, "ctrl_stamps", (c,)), (data.gravity, "gravity", (3,)),
+            (data.preint_rot, "preint_rot", (e, 3, 3)), (data.preint_vel, "preint_vel", (e, 3)),
+            (data.preint_pos, "preint_pos", (e, 3)), (data.cov_inv, "cov_inv", (e, 9, 9)),
+            (data.balancing_imu, "balancing_imu", ()),
+        ]
+    keep = []
+    for t, name, shape in operands:
+        t = t.contiguous()
+        cuda_lib.require(t, name, torch.int64 if name in ("left", "right") else torch.float64, shape, dev)
+        keep.append(t)
+    ptrs = [t.data_ptr() for t in keep] + [None] * (14 - len(keep))  # no IMU: the kernel reads none of those
+    P = cuda_lib.ptr
+    cuda_lib.LAUNCHES["window_tables"] += 1
+    cuda_lib.check(
+        cuda_lib.library().k6_window_tables(
+            P(params), n_sets, p_dim, c, d, int(use_imu), *ptrs,
+            P(tab), P(extra), None if dtab is None else P(dtab), None if j_extra is None else P(j_extra),
+            cuda_lib.stream_ptr(dev),
+        ),
+        "k6_window_tables",
+    )
+
+
 @lru_cache(maxsize=None)
 def make_forward(shapes: WindowShapes, use_imu: bool):
     """ForwardOut function of the window problem."""
 
     def forward(params, data: WindowData) -> ForwardOut:
-        tab, extra = _window_tables(params, data, shapes, use_imu)
-        xs, tidx = _window_point_arrays(data, shapes)
-        pts = rot.quat_rotate(tab[tidx, 0:4], xs) + tab[tidx, 4:7]
-        mask = torch.cat([data.pt_mask, data.static_mask])
-        rings = torch.cat([data.pt_ring, data.static_ring])
-        return ForwardOut(points=pts, mask=mask, ring_ids=rings, extra=extra)
+        return _table_forward(*_window_tables(params, data, shapes, use_imu), data, shapes)
 
     return forward
 
@@ -217,11 +319,17 @@ def make_structured(shapes: WindowShapes, use_imu: bool):
 @lru_cache(maxsize=None)
 def make_tabular(shapes: WindowShapes, use_imu: bool) -> TabularProblem:
     """The window problem in table form: point j = quat_rotate(q_dense[idx_j],
-    x_j) + t_dense[idx_j]; static map points on the trailing identity row."""
+    x_j) + t_dense[idx_j]; static map points on the trailing identity row.
+    The tables with their Jacobian, and the line search's candidate tables,
+    come from window_tables / window_tables_batch (K6 on the card,
+    torch.func on the CPU); the forward reads its points from the table."""
     return TabularProblem(
         n_table=shapes.n_dense + 1,
         tables=lambda params, data: _window_tables(params, data, shapes, use_imu),
         point_arrays=lambda data: _window_point_arrays(data, shapes),
+        tables_jac=lambda params, data: window_tables(params, data, shapes, use_imu),
+        tables_batch=lambda cands, data: window_tables_batch(cands, data, shapes, use_imu),
+        forward_tab=lambda tab, extra, data: _table_forward(tab, extra, data, shapes),
     )
 
 

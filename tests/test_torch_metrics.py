@@ -173,6 +173,16 @@ def test_run_fills_every_span_and_counter(fused_run):
     assert int(ev[ev[:, 0] == tfused.EV_KEYFRAME, 7].sum()) == s["submap.span"]["count"]
 
 
+def test_window_tables_kernel_counter_reads_zero_on_the_cpu(fused_run):
+    """window.gn.tables_kernel counts the table calls served by K6: none on
+    CPU tensors, where the window's tables take torch.func; the submap
+    supplies no kernel entry and records no such counter."""
+    _, s, _ = fused_run
+    assert s["window.gn.iters"]["count"] > 0
+    assert s["window.gn.tables_kernel"]["count"] == 0
+    assert "submap.gn.tables_kernel" not in s
+
+
 def test_spans_partition_the_step(fused_run):
     """Each span's self time is its total less its children's; the step's
     children together stay within it."""

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the K1-K5 calls (build_packed, gn_system, cand_errors, min_sq_dist,
-radius_neighbor_moments) of the PyTorch port at chip_smoke.py's shapes, for
-this checkout or another one.
+"""Time the K1-K6 calls (build_packed, gn_system, cand_errors, min_sq_dist,
+radius_neighbor_moments, window_tables) of the PyTorch port at
+chip_smoke.py's shapes, for this checkout or another one.
 
     python3 tools/kernel_calls.py
     python3 tools/kernel_calls.py --root path/to/other/checkout
@@ -14,8 +14,9 @@ rows and P = 594 over the 100-keyframe ring's, K3 at K = 15 over each of
 the three packed inputs, K4 at chip_smoke's two static-point queries, K5 at
 chip_smoke's 4,096-point keyframe cloud (rho = 0.8 m) with the radius as a
 host number (the host pipeline's form) and as an f32 card scalar (the fused
-pipeline's), and the stable torch.sort of K1's keys at n = 28,672 on its
-own.  For each call
+pipeline's), K6 in both modes at chip_smoke's window (and, beside it, the
+torch.func path it replaces; a checkout without K6 times only that path),
+and the stable torch.sort of K1's keys at n = 28,672 on its own.  For each call
 it prints one JSON line, each number from chip_smoke.py's own helpers:
 
   ms               CUDA events after one warm-up call, over chip_smoke's
@@ -48,9 +49,10 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _load_smoke():
-    """chip_smoke.py of this checkout (its problem builders and timers)."""
-    spec = importlib.util.spec_from_file_location("chip_smoke_helpers", os.path.join(HERE, "chip_smoke.py"))
+def _load(name, path):
+    """A module of this checkout by its path (chip_smoke.py: its problem
+    builders and timers; tests/torch_window.py: K6's window)."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, path))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -61,7 +63,7 @@ def main(argv=None):
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--tag", default="")
     args = ap.parse_args(argv)
-    smoke = _load_smoke()
+    smoke = _load("chip_smoke_helpers", "chip_smoke.py")
     sys.path.insert(0, os.path.abspath(args.root))
 
     import numpy as np
@@ -72,6 +74,7 @@ def main(argv=None):
     from dmsa_lidar_slam_tpu_torch.ops import cuda_lib, voxel
     from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
     from dmsa_lidar_slam_tpu_torch.ops import nn_bruteforce as nb
+    from dmsa_lidar_slam_tpu_torch.trajectory import continuous as ct
 
     dev = torch.device("cuda", 0)
     cuda_lib.library()
@@ -112,6 +115,17 @@ def main(argv=None):
     for rho, label in ((2.0 * grid, "host float"), (rho_card, "card scalar")):
         rows.append(("radius_neighbor_moments", f"N={kpts.shape[0]} rho={2.0 * grid} {label}",
                      lambda r=rho: nb.radius_neighbor_moments(kpts, kmask, r), 20))
+    window = _load("torch_window_helpers", os.path.join("tests", "torch_window.py"))
+    shapes, wdata, params = window.window_problem(smoke.K6_SEED, device=dev)
+    cands = window.candidates(params, smoke.K6_SEED)
+    tab_fn = lambda p: ct._window_tables(p, wdata, shapes, True)  # noqa: E731
+    rows.append(("torch.func jacfwd", "window P=30 D=502", lambda: torch.func.jacfwd(tab_fn)(params), 3))
+    rows.append(("torch.func vmap", "window K=15 D=502", lambda: torch.func.vmap(tab_fn)(cands), 3))
+    if hasattr(ct, "window_tables"):  # a tree with K6
+        rows.append(("window_tables", "jacobian P=30 D=502",
+                     lambda: ct.window_tables(params, wdata, shapes, True), 20))
+        rows.append(("window_tables", "batch K=15 D=502",
+                     lambda: ct.window_tables_batch(cands, wdata, shapes, True), 20))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     steady = smoke.STEADY_REPS
