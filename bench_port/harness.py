@@ -2,10 +2,11 @@
 the check that decides `correct`.
 
 A cell `<config>.<mix>` is found by its name in BENCHMARK.json: the
-configuration's file (bench_port/configs/<config>.json: the stream's width
-and the pipeline's keys) and the mix's (bench_port/traffic/<mix>.json:
-the trajectory, stressors, warm-up, segment and checks).  Per-layer
-metrics are read by bench_port/metrics/<metric>.py, one reader each.
+configuration's file (bench_port/configs/<config>.json: the stream's width,
+the pipeline's keys, and the sensor rig that generator.rig reads from both)
+and the mix's (bench_port/traffic/<mix>.json: the trajectory, stressors,
+warm-up, segment and checks).  Per-layer metrics are read by
+bench_port/metrics/<metric>.py, one reader each.
 
 The program is driven as the CLI runner drives it (pipeline/runner.py,
 the fused default): FusedDmsaSlam.process_imu_batch, then process_scan,
@@ -156,9 +157,10 @@ def run_cell(root, name, seed, seconds, trace, device="cuda", t_start=None, faul
     seg_lo, seg_hi = traffic["segment"]
     warm = traffic["warmup_scans"]
     prewarm = min(traffic.get("prewarm_scans", 0), seg_hi - seg_lo)
+    rig = generator.rig(cfg)
     t_gen = time.perf_counter()
     data = generator.stream(seed, traffic["sequence"], seg_hi, st["points_per_scan"], st["rings"], st["imu_rate_hz"],
-                            traffic.get("stressors", {}))
+                            traffic.get("stressors", {}), rig=rig)
     gen_s = time.perf_counter() - t_gen
 
     pipeline = {k: (tuple(v) if isinstance(v, list) else v) for k, v in cfg["pipeline"].items()}
@@ -241,7 +243,7 @@ def run_cell(root, name, seed, seconds, trace, device="cuda", t_start=None, faul
     tmp.cleanup()
     from bench_port import compare
 
-    truth = generator.truth(traffic["sequence"])
+    truth = generator.truth(traffic["sequence"], rig)
     stamps, positions = np.asarray(trajectory[0], dtype=np.float64), np.asarray(trajectory[1], dtype=np.float64)
     numbers["ate_m"] = compare.ate_m(stamps, positions, truth)
 

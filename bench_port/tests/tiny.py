@@ -14,12 +14,13 @@ OVERRIDES = dict(
 )
 
 
-def loaded(root, warmup=8, segment=(8, 14), prewarm=2):
-    """load_cell's tuple for nc_os128.loop cut to the tiny size."""
-    cell, cfg, traffic, manifest = harness.load_cell(root, "nc_os128.loop")
+def loaded(root, warmup=8, segment=(8, 14), prewarm=2, name="nc_os128.loop"):
+    """load_cell's tuple for a cell (nc_os128.loop) cut to the tiny size:
+    1,000 points a scan over the configuration's rings."""
+    cell, cfg, traffic, manifest = harness.load_cell(root, name)
     cfg = copy.deepcopy(cfg)
     cfg["pipeline"].update(OVERRIDES)
-    cfg["stream"].update(points_per_scan=1000, rings=128)
+    cfg["stream"].update(points_per_scan=1000)
     traffic = json.loads(json.dumps(traffic))
     traffic.update(warmup_scans=warmup, segment=list(segment), prewarm_scans=prewarm,
                    stressors=dict(traffic["stressors"], short_after=segment[0], short_every=segment[0] + 3))
