@@ -208,9 +208,11 @@ def make_step(config: Config, shapes: FusedShapes, device, mesh: Optional[pmesh.
     The step records into `metrics` (a throwaway Metrics when None) the
     spans step.preprocess, window.assemble, map.init, window.static,
     window.optimize, window.decide, keyframe.cloud and keyframe.submap, the
-    optimizer's window.gn.* and submap.gn.* spans and iteration counters,
-    and the counters submap.span (keyframes per solve) and submap.params
-    (the solve's P), each summed."""
+    latter's children submap.view (the view and its grid), submap.optimize
+    (the solve, the mesh's broadcast included) and submap.write_back, the
+    optimizer's window.gn.* and submap.gn.* spans (the latter under
+    submap.optimize) and iteration counters, and the counters submap.span
+    (keyframes per solve) and submap.params (the solve's P), each summed."""
     c = config
     m = Metrics() if metrics is None else metrics
     pdt = POSE_DTYPE
@@ -343,25 +345,29 @@ def make_step(config: Config, shapes: FusedShapes, device, mesh: Optional[pmesh.
         """The submap optimization; returns (state, the spatial shuffle's
         overflow as a card scalar, None on one card)."""
         from_id = max(min_related_adj, 0, int(state.kf.count) - S_sub)
-        sdata, sparams = dmap.submap_view_capped(
-            state.kf, from_id, S_sub, t64(c.balancing_factor_gravity), t64(c.balancing_factor_odometry),
-            cov_grav_inv, odom_cov_inv, odom_cov_inv, gravity,
-        )
-        smin_grid = dmap.min_grid_from(state.kf, from_id)
+        with m.stage("submap.view"):
+            sdata, sparams = dmap.submap_view_capped(
+                state.kf, from_id, S_sub, t64(c.balancing_factor_gravity), t64(c.balancing_factor_odometry),
+                cov_grav_inv, odom_cov_inv, odom_cov_inv, gravity,
+            )
+            smin_grid = dmap.min_grid_from(state.kf, from_id)
         m.count("submap.params", sparams.shape[0])
         overflow = None
-        if mesh is None:
-            params_new = opt.optimize(kf_fwd, sparams, sdata, settings_map, smin_grid, tabular_fn=kf_tabular,
-                                      metrics=m, name="submap").params
-        else:
-            params_new, overflow = sparams, torch.zeros((), dtype=pdt, device=dev)
-            if mesh.member:
-                params_new, ov = dist_submap_opt(sparams, sdata, smin_grid)
-                overflow = ov.to(pdt)
-            # the ranks outside the mesh take its result
-            out = pmesh.broadcast_from_mesh(mesh, torch.cat([params_new, overflow[None]]))
-            params_new, overflow = out[:-1], out[-1]
-        return state._replace(kf=dmap.write_back_capped(state.kf, from_id, params_new)), overflow
+        with m.stage("submap.optimize"):
+            if mesh is None:
+                params_new = opt.optimize(kf_fwd, sparams, sdata, settings_map, smin_grid, tabular_fn=kf_tabular,
+                                          metrics=m, name="submap").params
+            else:
+                params_new, overflow = sparams, torch.zeros((), dtype=pdt, device=dev)
+                if mesh.member:
+                    params_new, ov = dist_submap_opt(sparams, sdata, smin_grid)
+                    overflow = ov.to(pdt)
+                # the ranks outside the mesh take its result
+                out = pmesh.broadcast_from_mesh(mesh, torch.cat([params_new, overflow[None]]))
+                params_new, overflow = out[:-1], out[-1]
+        with m.stage("submap.write_back"):
+            kf = dmap.write_back_capped(state.kf, from_id, params_new)
+        return state._replace(kf=kf), overflow
 
     def main_window(state, data, params0, sc, prio):
         curr_pos = data.anchor_transl

@@ -27,6 +27,7 @@ N_SCANS, PTS = 10, 500
 STEP_CHILDREN = ("step.preprocess", "window.assemble", "map.init", "window.static", "window.optimize",
                  "window.decide", "keyframe.cloud", "keyframe.submap")
 GN_PARTS = ("tables", "cells", "stop")
+SUBMAP_CHILDREN = ("submap.view", "submap.optimize", "submap.write_back")
 
 
 def _config():
@@ -125,10 +126,19 @@ def test_record_function_only_while_a_profiler_records(monkeypatch):
 @pytest.fixture(scope="module")
 def fused_run():
     """A short CPU run; records the last dispatched step's inputs and
-    output."""
+    output, and the iterations each solve's optimize returned, by name."""
+    from dmsa_lidar_slam_tpu_torch.dmsa import optimizer as topt
+
     slam = tfused.FusedDmsaSlam(_config(), flush_every=8, device="cpu")
     step = slam.step
     last = {}
+    returned = {"window": [], "submap": []}
+    optimize = topt.optimize
+
+    def recording_optimize(*args, **kwargs):
+        out = optimize(*args, **kwargs)
+        returned[kwargs["name"]].append(int(out.num_iters))
+        return out
 
     def recording_step(state, pack, aux, prio):
         out = step(state, pack, aux, prio)
@@ -138,12 +148,15 @@ def fused_run():
     slam.step = recording_step
     seq = SyntheticSequence(rng=np.random.default_rng(11), noise_std=0.01, room_scale=0.45)
     cursor = seq.t_start - 0.2
-    for i in range(N_SCANS):
-        t_end = seq.t_start + (i + 1) * seq.sweep
-        ts, acc, gyr = seq.imu_samples(cursor, t_end)
-        slam.process_imu_batch(acc, gyr, ts)
-        cursor = t_end
-        slam.process_scan(*seq.scan(i, PTS))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(topt, "optimize", recording_optimize)
+        for i in range(N_SCANS):
+            t_end = seq.t_start + (i + 1) * seq.sweep
+            ts, acc, gyr = seq.imu_samples(cursor, t_end)
+            slam.process_imu_batch(acc, gyr, ts)
+            cursor = t_end
+            slam.process_scan(*seq.scan(i, PTS))
+    slam.returned_iters = returned
     return slam, slam.metrics.summary(), last
 
 
@@ -156,7 +169,7 @@ def test_run_fills_every_span_and_counter(fused_run):
     for name in STEP_CHILDREN:
         assert s[name]["calls"] > 0 and s[name]["parent"] == "step", name
     for opt_name, parent, n_iter in (("window", "window.optimize", c.num_iter_sliding_window_optim),
-                                     ("submap", "keyframe.submap", c.num_iter_keyframe_optim)):
+                                     ("submap", "submap.optimize", c.num_iter_keyframe_optim)):
         for part in GN_PARTS:
             assert s[f"{opt_name}.gn.{part}"]["parent"] == parent
         solves = s[parent]["calls"]
@@ -171,6 +184,31 @@ def test_run_fills_every_span_and_counter(fused_run):
     # the event rows' submap spans (column 7 of the keyframe rows) sum to the counter
     ev = slam.state.events[: int(slam.state.ev_index)]
     assert int(ev[ev[:, 0] == tfused.EV_KEYFRAME, 7].sum()) == s["submap.span"]["count"]
+
+
+def test_submap_solve_spans_nest_under_keyframe_submap(fused_run):
+    """The submap solve's three child spans run once a solve, inside
+    keyframe.submap (the optimizer's submap.gn.* spans nest under
+    submap.optimize: test_run_fills_every_span_and_counter); the children
+    and keyframe.submap's self time make up its total."""
+    _, s, _ = fused_run
+    solves = s["keyframe.submap"]["calls"]
+    assert solves > 0
+    for name in SUBMAP_CHILDREN:
+        assert s[name]["calls"] == solves and s[name]["parent"] == "keyframe.submap", name
+    kids = sum(s[name]["total_s"] for name in SUBMAP_CHILDREN)
+    assert s["keyframe.submap"]["total_s"] == pytest.approx(kids + s["keyframe.submap"]["self_s"], abs=1e-9)
+
+
+@pytest.mark.parametrize("name", ["window", "submap"])
+def test_iteration_counter_is_the_iterations_returned(fused_run, name):
+    """<name>.gn.iters sums the num_iters that each solve's optimize
+    returned; the submap's solves are the calls of submap.optimize."""
+    slam, s, _ = fused_run
+    returned = slam.returned_iters[name]
+    parent = "window.optimize" if name == "window" else "submap.optimize"
+    assert len(returned) == s[parent]["calls"] > 0
+    assert s[f"{name}.gn.iters"]["count"] == sum(returned)
 
 
 def test_window_tables_kernel_counter_reads_zero_on_the_cpu(fused_run):
