@@ -33,7 +33,9 @@ printed on its own lines and none of them caught:
      K6 (the window's pose tables, port-only) in both modes at the window's
      shape (P = 30, K = 15 candidates, n_dense = 501, IMU residuals)
      against the torch.func path it replaces (its plain version, timed as
-     plain_ms), bit for bit against a second call;
+     plain_ms), bit for bit against a second call; K7 (the submap's pose
+     tables, port-only) the same way at the bench's submap (S = 48,
+     P = 282) and the upstream ring (S = 100, P = 594), gravity terms on;
   3. the fused pipeline: FusedDmsaSlam on bench_sequence(3) with
      bench_config(), 50 scans of 20,000 points.  Launch counters are zeroed
      just before and read just after; every kernel must have run,
@@ -78,7 +80,9 @@ printed on its own lines and none of them caught:
      versions at the per-rank shapes of the spatial backend (the rows rank
      0 receives at 2 ranks and at 1); (g2) parallel.spatial at world size 1
      over NCCL: no overflow, K1-K3 launched, parameters within
-     G2_PARAM_TOL of (g1)'s; (g4) the hash backend at world size 1, its
+     G2_PARAM_TOL of (g1)'s call on torch.func's tables (spatial's own
+     table path; K7's one iteration from the start within DIST_STEP_TOL_M
+     of that path's); (g4) the hash backend at world size 1, its
      parameter error at most HASH_GAIN of the start's; then 2 spawned ranks
      sharing the card over gloo, counters zeroed and read in each rank:
      (g3) parallel.spatial, the shipped call (no overflow, K1-K3 launched
@@ -236,7 +240,7 @@ DIST_FUSED_SCANS = SAVE_AT  # (g5): the fused pipeline over 2 ranks to the phase
 # package and the port alike (tools/dist_convergence.py --reference;
 # PERF.md section 7), so the shipped count is held to what both do
 G1_DESCENT_ITERS, G1_DESCENT_GAIN, G1_SHIPPED_GAIN = 6, 0.70, 1.0
-G2_PARAM_TOL = 1e-4  # (g2) against (g1): the same exact cells, K2/K3 sums of the same rows
+G2_PARAM_TOL = 1e-4  # (g2) against (g1) on torch.func's tables: the same exact cells, K2/K3 sums of the same rows
 # (g3): one 2-rank iteration from (g1)'s params after each of these counts,
 # against (g1)'s next ones: keyframe positions within DIST_STEP_TOL_M, ~3x
 # the 0.086 mm the card showed (the rank count changes only the order of the
@@ -269,6 +273,7 @@ LONG_SUBMAP_MASKED_SHARE = 0.286
 LONG_HOST_SCANS = 40
 ROWS12_SEED = 40  # K1's 12-row rows (phase 2)
 K6_SEED = 60  # K6's window (phase 2)
+K7_SEED = 70  # K7's submaps (phase 2)
 # phase (i): the weights' seed; one iteration through the kernels against
 # the same iteration through their plain versions: parameters within
 # WEIGHTED_ITER_TOL, a tenth of what the weights themselves move one
@@ -620,15 +625,16 @@ def rows12_rows(results, calls, device):
             "" if masked == 0.05 else f", masked={masked}"))
 
 
-def _k6_error(got, want):
-    """K6 against its plain version: the largest of the tables' absolute
-    error, the f64 residuals' error relative to their scale and, in the
-    jacobian mode, each parameter's table column relative to its largest
-    entry and the residuals' tangents relative to their scale."""
+def _tables_error(got, want, tab_scale=1.0):
+    """A pose-table kernel (K6, K7) against its plain version: the largest
+    of the tables' absolute error over tab_scale, the f64 residuals' error
+    relative to their scale and, in the jacobian mode, each parameter's
+    table column relative to its largest entry and the residuals' tangents
+    relative to their scale."""
     def rel(g, w):
         return float((g - w).abs().max() / w.abs().max().clamp(min=1e-300)) if w.numel() else 0.0
 
-    errs = [float((got[0] - want[0]).abs().max()), rel(got[1], want[1])]
+    errs = [float((got[0] - want[0]).abs().max()) / tab_scale, rel(got[1], want[1])]
     if len(got) == 4:
         dtab, r_dtab = got[2].flatten(1), want[2].flatten(1)
         errs.append(float(((dtab - r_dtab).abs().amax(1) / r_dtab.abs().amax(1).clamp(min=1e-30)).max()))
@@ -667,7 +673,47 @@ def k6_rows(results, calls, device):
         torch.cuda.synchronize()
         _record(results, calls, "window_tables", "dmsa_lidar_slam_tpu_torch/csrc/k6_window_tables.cu",
                 "none (port-only): torch.func jacfwd / vmap over trajectory/continuous.py _window_tables",
-                _k6_error(got, want), 1e-6, fn, 20, plain, 3, label, n_bytes, 0)
+                _tables_error(got, want), 1e-6, fn, 20, plain, 3, label, n_bytes, 0)
+
+
+def k7_rows(results, calls, device):
+    """K7 at the bench's submap (S = 48, P = 282) and the upstream ring
+    (S = 100, P = 594), gravity terms on and odometry off as every bench
+    configuration runs it, in both modes (the tables and their Jacobian;
+    the tables at the line search's K = 15 candidates) against the
+    torch.func path it replaces, twice for the bits, and timed."""
+    import torch
+
+    from dmsa_lidar_slam_tpu_torch.map import keyframes as kfm
+    from tests.torch_keyframes import keyframe_problem
+    from tests.torch_window import candidates
+
+    for s in (48, 100):
+        shapes, data, params = keyframe_problem(K7_SEED, s=s, device=device)
+        cands = candidates(params, K7_SEED)
+        k, p_dim, e = cands.shape[0], params.shape[0], s
+        # bytes: the anchor, the gravity terms' operands in, the tables (and
+        # the Jacobian) out, each once
+        consts = 8 * (3 + 3 + 3 * s + 3 + 9 + 1) + 2 * s
+        # the calls keep this submap's operands (`calls` profiles them later)
+        args = (params, data, shapes, True, False)
+        cargs = (cands, *args[1:])
+        for mode, fn, plain, n_bytes, label in (
+            ("jacobian", lambda a=args: kfm.keyframe_tables(*a), lambda a=args: kfm.keyframe_tables_ref(*a),
+             8 * p_dim + consts + 32 * (s + 1) * (1 + p_dim) + 8 * e * (1 + p_dim), f"jacobian P={p_dim} S={s}"),
+            ("batch", lambda a=cargs: kfm.keyframe_tables_batch(*a), lambda a=cargs: kfm.keyframe_tables_batch_ref(*a),
+             8 * k * p_dim + consts + 32 * (s + 1) * k + 8 * e * k, f"batch K={k} S={s}"),
+        ):
+            got = fn()
+            assert all(torch.equal(a, b) for a, b in zip(got, fn())), f"K7 {mode}: not repeatable"
+            want = plain()
+            torch.cuda.synchronize()
+            # the tables' error over their largest entry (translations of
+            # tens of metres: an f32 step there is several 1e-6)
+            err = _tables_error(got, want, max(1.0, float(want[0].abs().max())))
+            _record(results, calls, "keyframe_tables", "dmsa_lidar_slam_tpu_torch/csrc/k7_keyframe_tables.cu",
+                    "none (port-only): torch.func jacfwd / vmap over map/keyframes.py _kf_tables",
+                    err, 1e-6, fn, 20, plain, 3, label, n_bytes, 0)
 
 
 def kernel_checks(device):
@@ -734,6 +780,9 @@ def kernel_checks(device):
 
     # K6 at the window's shape, both modes
     k6_rows(results, calls, device)
+
+    # K7 at the bench's submap and the upstream ring, both modes
+    k7_rows(results, calls, device)
 
     # K4 at the two static-point queries of a bench scan
     for n_ref, n_q in ((20480, 12288), (8192, 20480)):
@@ -1024,7 +1073,7 @@ def fused_resume(device, seq, data, full, ckpt_path):
     assert dpos <= FUSED_RESUME_TOL and dori <= FUSED_RESUME_TOL, (dpos, dori)
     assert ate <= ATE_GATE_M, f"resumed ATE {ate} above {ATE_GATE_M}"
     for k in cuda_lib.LAUNCHES:
-        assert launches[k] > 0 or (k == "radius_neighbor_moments" and new_kf == 0), \
+        assert launches[k] > 0 or (k in ("radius_neighbor_moments", "keyframe_tables") and new_kf == 0), \
             f"kernel {k} never launched on resume"
     return launches
 
@@ -1096,7 +1145,7 @@ def trace_phase(device, data, ckpt_path):
     assert not missing, f"csrc kernels with no time in the trace: {missing}"
     wrappers = {"build_packed": "k1_build.cu", "gn_system": "k2_gn.cu", "cand_errors": "k3_cand.cu",
                 "min_sq_dist": "k4_nn.cu", "radius_neighbor_moments": "k5_moments.cu",
-                "window_tables": "k6_window_tables.cu"}
+                "window_tables": "k6_window_tables.cu", "keyframe_tables": "k7_keyframe_tables.cu"}
     for w in launched:
         assert any(sources.get(k) == wrappers[w] for k in in_trace), f"no {wrappers[w]} kernel in the trace"
     assert {"build_packed", "gn_system", "cand_errors", "min_sq_dist", "window_tables"} <= launched, launched
@@ -1682,18 +1731,30 @@ def single_card_phase(device):
         cells.append(int(r.num_gaussians))
     truth = kf_positions(data, pt, DIST_SHAPE)
     errs = [position_rms(kf_positions(data, p, DIST_SHAPE), truth) for p in curve]
+    # the same calls on torch.func's tables (the TabularProblem defaults),
+    # the path parallel.spatial takes: (g2) is held to this one.  K7's
+    # residuals differ from torch.func's in the last f64 bits, which the
+    # late iterations amplify (G1_DESCENT_ITERS), so K7's one iteration
+    # from the start is held to torch.func's as (g3) holds a reordered sum
+    plain = opt.TabularProblem(tabular.n_table, tabular.tables, tabular.point_arrays)
+    tfunc = opt.optimize(fwd, p0, data, dist_settings(DIST_OPT["num_iter"]), 0.25, tabular_fn=plain).params
+    tfunc1 = opt.optimize(fwd, p0, data, dist_settings(1), 0.25, tabular_fn=plain).params
+    step_gap = position_max(kf_positions(data, curve[1], DIST_SHAPE), kf_positions(data, tfunc1, DIST_SHAPE))
     out = dict(keyframes=DIST_SHAPE[0], points=DIST_SHAPE[0] * DIST_SHAPE[1], params=p0.shape[0],
                iterations=int(res.num_iters), stop_reason=int(res.stop_reason), gaussians=int(res.num_gaussians),
                kf_pos_rms_m=errs, valid_cells=cells, descent_bound=[G1_DESCENT_ITERS, G1_DESCENT_GAIN],
-               shipped_bound=G1_SHIPPED_GAIN, wall_s=wall, launches=launches)
+               shipped_bound=G1_SHIPPED_GAIN, wall_s=wall, launches=launches,
+               params_max_diff_vs_torch_func=float((res.params - tfunc).abs().max()),
+               one_iteration_kf_pos_max_diff_vs_torch_func_m=step_gap, one_iteration_tolerance_m=DIST_STEP_TOL_M)
     print("  (g1) single card " + json.dumps(out), flush=True)
+    assert step_gap <= DIST_STEP_TOL_M, f"(g1) K7's iteration {step_gap} m from torch.func's"
     assert bool(res.params.isfinite().all()), "non-finite parameters"
     assert torch.equal(curve[-1], res.params), "(g1) one iteration per call left the shipped call's path"
     assert len(errs) > G1_DESCENT_ITERS and errs[G1_DESCENT_ITERS] <= G1_DESCENT_GAIN * errs[0], \
         f"(g1) keyframe position RMS {errs[0]} -> {errs[G1_DESCENT_ITERS:G1_DESCENT_ITERS + 1]}"
     assert errs[-1] <= G1_SHIPPED_GAIN * errs[0], f"(g1) keyframe position RMS {errs[0]} -> {errs[-1]}"
     _k123_launched(launches, "in (g1)")
-    return curve, launches
+    return curve, launches, tfunc
 
 
 def dist_kernel_rows(device, results, calls):
@@ -1745,7 +1806,8 @@ def dist_kernel_rows(device, results, calls):
 
 def one_rank_phase(device, g1_params):
     """(g2) parallel.spatial at world size 1 over NCCL against (g1)'s
-    params after the shipped call, and (g4, second half) the hash backend
+    params after the shipped call on torch.func's tables (spatial's own
+    table path), and (g4, second half) the hash backend
     at world size 1 at the 100-keyframe shape.  Returns (g2)'s launches."""
     import torch
     import torch.distributed as dist
@@ -1951,11 +2013,11 @@ def dist_phase(device, ckpt_path, results, calls):
     c = Config()
     assert (DIST_OPT["num_iter"], DIST_OPT["min_points"], DIST_OPT["step_length"], DIST_OPT["epsilon"]) == (
         c.num_iter_keyframe_optim, c.min_num_points_gauss_key, c.alpha_keyframe_optim, c.epsilon_keyframe_opt)
-    g1_curve, g1_launches = sub("(g1) the single-card optimizer at 100 keyframes x 4,096 points:",
-                                single_card_phase, device)
+    g1_curve, g1_launches, g1_tfunc = sub("(g1) the single-card optimizer at 100 keyframes x 4,096 points:",
+                                          single_card_phase, device)
     sub("(g) K1-K3 at the spatial backend's per-rank shapes:", dist_kernel_rows, device, results, calls)
     dist_launches = sub("(g2, g4) parallel.spatial and the hash backend at world size 1 over NCCL:",
-                        one_rank_phase, device, g1_curve[-1])
+                        one_rank_phase, device, g1_tfunc)
     two = sub("(g3, g4, g5) 2 ranks on the one card over gloo:", two_rank_phase, device, g1_curve, ckpt_path)
     for k, v in two.items():
         dist_launches[k] += v

@@ -9,9 +9,9 @@ damped step with an infinity-norm clip, and run the line search.
   - tabular path (the fused pipeline): cell build K1, normal equations K2,
     line search over candidate 0 (the unstepped params) plus the step
     fractions K3.  The table Jacobian comes from the problem's tables_jac
-    (the window's: K6 on the card), by default from torch.func.jacfwd over
-    the table builder; the candidate tables from its tables_batch, by
-    default from torch.func.vmap;
+    (on the card the window's K6, the submap's K7), by default from
+    torch.func.jacfwd over the table builder; the candidate tables from its
+    tables_batch, by default from torch.func.vmap;
   - structured path (the host pipeline): gaussians.build_cells, the closed
     form per-point residual gradient contracted against the problem's
     pose-table Jacobian (torch.func.jacfwd over the small table graph),

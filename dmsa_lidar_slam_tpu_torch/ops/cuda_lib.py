@@ -31,7 +31,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinf
 
 LAUNCHES = {
     "build_packed": 0, "gn_system": 0, "cand_errors": 0, "min_sq_dist": 0, "radius_neighbor_moments": 0,
-    "window_tables": 0,
+    "window_tables": 0, "keyframe_tables": 0,
 }
 BRANCHES = {"gn_system_dense_j": 0, "build_rows12": 0}
 BUILD_SECONDS = None  # wall time of the last nvcc build (None: none ran)
@@ -65,6 +65,9 @@ _SIGNATURES = {
     # params, n_sets, P, C, D, use_imu, anchor_o, anchor_t, A, left, right, u, dt, stamps, gravity,
     # prot, pvel, ppos, cov, bal, tab, extra, dtab, jextra, stream
     "k6_window_tables": [_P, _I, _I, _I, _I, _I, *[_P] * 14, _P, _P, _P, _P, _P],
+    # params, n_sets, P, S, use_grav, use_odom, anchor_o, anchor_t, kf_mask, plausible, grav_meas, gravity,
+    # cov_grav, bal_grav, odom_t, odom_o, cov_ot, cov_oo, bal_odom, tab, extra, dtab, jextra, stream
+    "k7_keyframe_tables": [_P, _I, _I, _I, _I, _I, *[_P] * 13, _P, _P, _P, _P, _P],
 }
 
 _lib = None

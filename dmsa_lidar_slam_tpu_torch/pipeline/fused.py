@@ -254,7 +254,7 @@ def make_step(config: Config, shapes: FusedShapes, device, mesh: Optional[pmesh.
     S_sub = submap_keyframes(c, shapes)
     sub_mshapes = kfm.MapShapes(n_keyframes=S_sub, n_pts_per_kf=shapes.kf_pts_cap)
     kf_fwd = kfm.make_forward(sub_mshapes, use_grav_terms, c.use_odometry_term_in_keyframe_opt, True)
-    kf_tabular = kfm.make_tabular(sub_mshapes, use_grav_terms, c.use_odometry_term_in_keyframe_opt)
+    kf_tabular = kfm.make_tabular(sub_mshapes, use_grav_terms, c.use_odometry_term_in_keyframe_opt, True)
     dist_submap_opt = None
     if mesh is not None and mesh.member:
         dist_submap_opt = keyframe_dist.make_submap_optimizer(c, settings_map, mesh, sub_mshapes, use_grav_terms,

@@ -2,9 +2,9 @@
 // plain C++, and a launch that runs every block's threads one after another
 // in two passes, the first ending at __syncthreads().  Exact for a kernel
 // whose one barrier follows work that repeats its own results
-// (csrc/k6_window_tables.cu: the first threads build their lane's control
-// chain in shared memory, the same values in both passes).  Used by
-// tests/test_torch_window_tables.py, which turns each `kernel<<<grid,
+// (csrc/k6_window_tables.cu, csrc/k7_keyframe_tables.cu: the first threads
+// build their lane's chain in shared memory, the same values in both
+// passes).  Used by tests/cuda_host.py, which turns each `kernel<<<grid,
 // block, 0, stream>>>(args)` into emu_launch(kernel, grid, block, args).
 #pragma once
 #include <algorithm>

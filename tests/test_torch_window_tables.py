@@ -3,22 +3,17 @@ use of it, on the CPU:
 
   - the reference path (torch.func's jacfwd and vmap over the window's
     table builder) returns the kernel's layout and dtypes in both modes;
-  - the window's TabularProblem supplies the entry, the submap's does not,
-    and past K6's control poses the window keeps it and K6 raises;
+  - the window's TabularProblem supplies the entries, as the submap's
+    does (K7), and past K6's control poses the window keeps them and K6
+    raises;
   - optimize on CPU tensors takes torch.func as before, bit for bit a
     TabularProblem without the entry, and never launches K6;
   - the window's forward read from the table is make_forward's, bit for
     bit;
-  - K6's source, built for the host (tests/cuda_host_emu.h), against the
+  - K6's source, built for the host (tests/cuda_host.py), against the
     reference in every regime of tests/torch_window.py, in both modes and
     with and without IMU residuals.
 """
-
-import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,10 +26,8 @@ from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
 from dmsa_lidar_slam_tpu_torch.core import rotations as rot
 from dmsa_lidar_slam_tpu_torch.trajectory import continuous as ct
 from tests import torch_window as tw
+from tests.cuda_host import build_host
 from tests.torch_parity import nn
-
-HERE = Path(__file__).resolve().parent
-K6_SOURCE = HERE.parent / "dmsa_lidar_slam_tpu_torch" / "csrc" / "k6_window_tables.cu"
 
 
 @pytest.mark.parametrize("use_imu", [True, False])
@@ -56,12 +49,12 @@ def test_reference_path_has_the_kernel_layout(use_imu):
     assert torch.allclose(tabs[0], tab) and torch.allclose(extras[0], extra)
 
 
-def test_window_supplies_the_entry_and_the_submap_does_not():
+def test_window_and_submap_supply_all_three_entries():
     shapes = ct.WindowShapes(n_window_pts=64, n_static=16)
     window = ct.make_tabular(shapes, True)
     assert None not in (window.tables_jac, window.tables_batch, window.forward_tab)
-    submap = kfm.make_tabular(kfm.MapShapes(n_keyframes=4, n_pts_per_kf=64), True, True)
-    assert (submap.tables_jac, submap.tables_batch, submap.forward_tab) == (None, None, None)
+    submap = kfm.make_tabular(kfm.MapShapes(n_keyframes=4, n_pts_per_kf=64), True, True, True)
+    assert None not in (submap.tables_jac, submap.tables_batch, submap.forward_tab)
 
 
 def test_past_the_kernels_control_poses_the_window_keeps_the_entry_and_k6_raises():
@@ -147,20 +140,8 @@ def test_forward_from_the_table_is_make_forward():
 @pytest.fixture(scope="module")
 def k6_host(tmp_path_factory):
     """csrc/k6_window_tables.cu built with g++ under tests/cuda_host_emu.h."""
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++")
-    src = K6_SOURCE.read_text().replace("#include <cuda_runtime.h>", '#include "cuda_host_emu.h"')
-    src, n = re.subn(r"(\w+)<<<(\w+), (\w+), 0, stream>>>\((\w+)\)", r"emu_launch(\1, \2, \3, \4)", src)
-    assert n == 1, "the launch of k6_window_tables"
-    out = tmp_path_factory.mktemp("k6_host")
-    cpp, so = out / "k6_host.cpp", out / "libk6_host.so"
-    cpp.write_text(src)
-    subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-I", str(HERE), "-o", str(so), str(cpp)],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
-    lib.k6_window_tables.argtypes = cuda_lib._SIGNATURES["k6_window_tables"]
-    lib.k6_window_tables.restype = ctypes.c_int
-    return lib
+    return build_host("k6_window_tables.cu", "k6_window_tables", cuda_lib._SIGNATURES["k6_window_tables"],
+                      tmp_path_factory.mktemp("k6_host"))
 
 
 def _host_call(lib, params, data, shapes, use_imu, n_sets):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the K1-K6 calls (build_packed, gn_system, cand_errors, min_sq_dist,
-radius_neighbor_moments, window_tables) of the PyTorch port at
+"""Time the K1-K7 calls (build_packed, gn_system, cand_errors, min_sq_dist,
+radius_neighbor_moments, window_tables, keyframe_tables) of the PyTorch port at
 chip_smoke.py's shapes, for this checkout or another one.
 
     python3 tools/kernel_calls.py
@@ -16,6 +16,8 @@ chip_smoke's 4,096-point keyframe cloud (rho = 0.8 m) with the radius as a
 host number (the host pipeline's form) and as an f32 card scalar (the fused
 pipeline's), K6 in both modes at chip_smoke's window (and, beside it, the
 torch.func path it replaces; a checkout without K6 times only that path),
+K7 the same way at the bench's submap (S = 48, P = 282) and the upstream
+ring (S = 100, P = 594) of tests/torch_keyframes.py, gravity terms on,
 and the stable torch.sort of K1's keys at n = 28,672 on its own.  For each call
 it prints one JSON line, each number from chip_smoke.py's own helpers:
 
@@ -51,7 +53,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _load(name, path):
     """A module of this checkout by its path (chip_smoke.py: its problem
-    builders and timers; tests/torch_window.py: K6's window)."""
+    builders and timers; tests/torch_window.py: K6's window;
+    tests/torch_keyframes.py: K7's submaps)."""
     spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, path))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -74,6 +77,7 @@ def main(argv=None):
     from dmsa_lidar_slam_tpu_torch.ops import cuda_lib, voxel
     from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
     from dmsa_lidar_slam_tpu_torch.ops import nn_bruteforce as nb
+    from dmsa_lidar_slam_tpu_torch.map import keyframes as kfm
     from dmsa_lidar_slam_tpu_torch.trajectory import continuous as ct
 
     dev = torch.device("cuda", 0)
@@ -126,6 +130,20 @@ def main(argv=None):
                      lambda: ct.window_tables(params, wdata, shapes, True), 20))
         rows.append(("window_tables", "batch K=15 D=502",
                      lambda: ct.window_tables_batch(cands, wdata, shapes, True), 20))
+    keyframes = _load("torch_keyframes_helpers", os.path.join("tests", "torch_keyframes.py"))
+    for s in (48, 100):  # the bench's submap, the upstream ring; gravity terms on, odometry off
+        kshapes, kdata, kparams = keyframes.keyframe_problem(smoke.K7_SEED, s=s, device=dev)
+        kcands = window.candidates(kparams, smoke.K7_SEED)
+        kf_fn = lambda p, d=kdata, sh=kshapes: kfm._kf_tables(p, d, sh, True, False)  # noqa: E731
+        p_dim = kparams.shape[0]
+        rows.append(("torch.func jacfwd", f"submap P={p_dim} S={s}",
+                     lambda f=kf_fn, p=kparams: torch.func.jacfwd(f)(p), 3))
+        rows.append(("torch.func vmap", f"submap K=15 S={s}", lambda f=kf_fn, c=kcands: torch.func.vmap(f)(c), 3))
+        if hasattr(kfm, "keyframe_tables"):  # a tree with K7
+            a = (kparams, kdata, kshapes, True, False)
+            rows.append(("keyframe_tables", f"jacobian P={p_dim} S={s}", lambda a=a: kfm.keyframe_tables(*a), 20))
+            rows.append(("keyframe_tables", f"batch K=15 S={s}",
+                         lambda a=(kcands, *a[1:]): kfm.keyframe_tables_batch(*a), 20))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     steady = smoke.STEADY_REPS
