@@ -78,11 +78,11 @@ printed on its own lines and none of them caught:
      G1_DESCENT_ITERS at most G1_DESCENT_GAIN of the start's, after the
      shipped call at most G1_SHIPPED_GAIN of it; K1-K3 against their plain
      versions at the per-rank shapes of the spatial backend (the rows rank
-     0 receives at 2 ranks and at 1); (g2) parallel.spatial at world size 1
-     over NCCL: no overflow, K1-K3 launched, parameters within
-     G2_PARAM_TOL of (g1)'s call on torch.func's tables (spatial's own
-     table path; K7's one iteration from the start within DIST_STEP_TOL_M
-     of that path's); (g4) the hash backend at world size 1, its
+     0 receives at 2 ranks and at 1), and K7's one iteration from the
+     start within DIST_STEP_TOL_M of the same iteration on torch.func's
+     tables; (g2) parallel.spatial at world size 1 over NCCL: no overflow,
+     K1-K3 and K7 launched, parameters within G2_PARAM_TOL of (g1)'s
+     shipped call; (g4) the hash backend at world size 1, its
      parameter error at most HASH_GAIN of the start's; then 2 spawned ranks
      sharing the card over gloo, counters zeroed and read in each rank:
      (g3) parallel.spatial, the shipped call (no overflow, K1-K3 launched
@@ -240,7 +240,7 @@ DIST_FUSED_SCANS = SAVE_AT  # (g5): the fused pipeline over 2 ranks to the phase
 # package and the port alike (tools/dist_convergence.py --reference;
 # PERF.md section 7), so the shipped count is held to what both do
 G1_DESCENT_ITERS, G1_DESCENT_GAIN, G1_SHIPPED_GAIN = 6, 0.70, 1.0
-G2_PARAM_TOL = 1e-4  # (g2) against (g1) on torch.func's tables: the same exact cells, K2/K3 sums of the same rows
+G2_PARAM_TOL = 1e-4  # (g2) against (g1): the same K7 tables, exact cells, K2/K3 sums of the same rows
 # (g3): one 2-rank iteration from (g1)'s params after each of these counts,
 # against (g1)'s next ones: keyframe positions within DIST_STEP_TOL_M, ~3x
 # the 0.086 mm the card showed (the rank count changes only the order of the
@@ -1012,7 +1012,7 @@ def host_run(device):
         print("  host pipeline " + json.dumps(out), flush=True)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    for k in ("min_sq_dist", "radius_neighbor_moments"):
+    for k in ("min_sq_dist", "radius_neighbor_moments", "window_tables", "keyframe_tables"):
         assert launches[k] > 0, f"kernel {k} never launched on the host path"
     assert slam.kf_map.count >= 3, slam.kf_map.count
     assert len(poses) >= 3 and len(pcd) > 500, (len(poses), len(pcd))
@@ -1712,7 +1712,7 @@ def single_card_phase(device):
     pipelines' settings: the shipped call, counters zeroed around it, then
     its iterations again one call each, which must land on the shipped
     call's params bit for bit.  Returns (params after each iteration, the
-    start first; launches)."""
+    start first; launches; the shipped call's params)."""
     import torch
 
     from dmsa_lidar_slam_tpu_torch.dmsa import optimizer as opt
@@ -1731,20 +1731,18 @@ def single_card_phase(device):
         cells.append(int(r.num_gaussians))
     truth = kf_positions(data, pt, DIST_SHAPE)
     errs = [position_rms(kf_positions(data, p, DIST_SHAPE), truth) for p in curve]
-    # the same calls on torch.func's tables (the TabularProblem defaults),
-    # the path parallel.spatial takes: (g2) is held to this one.  K7's
-    # residuals differ from torch.func's in the last f64 bits, which the
-    # late iterations amplify (G1_DESCENT_ITERS), so K7's one iteration
+    # K7's residuals differ from torch.func's in the last f64 bits, which
+    # the late iterations amplify (G1_DESCENT_ITERS), so K7's one iteration
     # from the start is held to torch.func's as (g3) holds a reordered sum
-    plain = opt.TabularProblem(tabular.n_table, tabular.tables, tabular.point_arrays)
-    tfunc = opt.optimize(fwd, p0, data, dist_settings(DIST_OPT["num_iter"]), 0.25, tabular_fn=plain).params
-    tfunc1 = opt.optimize(fwd, p0, data, dist_settings(1), 0.25, tabular_fn=plain).params
+    reference = tabular._replace(
+        tables_jac=lambda p, d: kfm.keyframe_tables_ref(p, d, shapes, True, True),
+        tables_batch=lambda cands, d: kfm.keyframe_tables_batch_ref(cands, d, shapes, True, True))
+    tfunc1 = opt.optimize(fwd, p0, data, dist_settings(1), 0.25, tabular_fn=reference).params
     step_gap = position_max(kf_positions(data, curve[1], DIST_SHAPE), kf_positions(data, tfunc1, DIST_SHAPE))
     out = dict(keyframes=DIST_SHAPE[0], points=DIST_SHAPE[0] * DIST_SHAPE[1], params=p0.shape[0],
                iterations=int(res.num_iters), stop_reason=int(res.stop_reason), gaussians=int(res.num_gaussians),
                kf_pos_rms_m=errs, valid_cells=cells, descent_bound=[G1_DESCENT_ITERS, G1_DESCENT_GAIN],
                shipped_bound=G1_SHIPPED_GAIN, wall_s=wall, launches=launches,
-               params_max_diff_vs_torch_func=float((res.params - tfunc).abs().max()),
                one_iteration_kf_pos_max_diff_vs_torch_func_m=step_gap, one_iteration_tolerance_m=DIST_STEP_TOL_M)
     print("  (g1) single card " + json.dumps(out), flush=True)
     assert step_gap <= DIST_STEP_TOL_M, f"(g1) K7's iteration {step_gap} m from torch.func's"
@@ -1754,7 +1752,7 @@ def single_card_phase(device):
         f"(g1) keyframe position RMS {errs[0]} -> {errs[G1_DESCENT_ITERS:G1_DESCENT_ITERS + 1]}"
     assert errs[-1] <= G1_SHIPPED_GAIN * errs[0], f"(g1) keyframe position RMS {errs[0]} -> {errs[-1]}"
     _k123_launched(launches, "in (g1)")
-    return curve, launches, tfunc
+    return curve, launches, res.params
 
 
 def dist_kernel_rows(device, results, calls):
@@ -1771,10 +1769,8 @@ def dist_kernel_rows(device, results, calls):
     data, p0, _ = dist_problem(DIST_SHAPE, device)
     s, ppk = DIST_SHAPE
     n = s * ppk
-    tabular = kfm.make_tabular(kfm.MapShapes(s, ppk), True, True)
     fp, fm, frs, aux = keyframe_dist.flatten_problem(data)
-    tab, _ = tabular.tables(p0, aux)
-    dtabs = torch.func.jacfwd(lambda p: tabular.tables(p, aux))(p0)[0].permute(2, 0, 1)
+    tab, _, dtabs, _ = kfm.keyframe_tables(p0, aux, kfm.MapShapes(s, ppk), True, True)
     tidx = torch.arange(s, device=device).repeat_interleave(ppk)
     split = kfm.normal_split_ids(rot.quat_rotate(tab[:, 0:4][tidx], data.local_normals.reshape(-1, 3)))
     payload = torch.cat([fp, tidx.float()[:, None], frs.float()[:, None], split.float()[:, None]], dim=1)
@@ -1806,8 +1802,8 @@ def dist_kernel_rows(device, results, calls):
 
 def one_rank_phase(device, g1_params):
     """(g2) parallel.spatial at world size 1 over NCCL against (g1)'s
-    params after the shipped call on torch.func's tables (spatial's own
-    table path), and (g4, second half) the hash backend
+    params after the shipped call (both on K7's tables), and (g4, second
+    half) the hash backend
     at world size 1 at the 100-keyframe shape.  Returns (g2)'s launches."""
     import torch
     import torch.distributed as dist
@@ -1832,6 +1828,7 @@ def one_rank_phase(device, g1_params):
         assert int(ov) == 0, "(g2) bucket overflow"
         assert diff <= G2_PARAM_TOL, f"(g2) parameters {diff} from (g1)'s"
         _k123_launched(launches, "in (g2)")
+        assert launches["keyframe_tables"] > 0, "kernel keyframe_tables never launched in (g2)"
 
         (ph, iters, eh, ch), wall, hl = _counted(lambda: hash_run(mesh, data, p0, DIST_SHAPE))
         e0, e1 = float((p0 - pt).norm()), float((ph - pt).norm())
@@ -2013,11 +2010,11 @@ def dist_phase(device, ckpt_path, results, calls):
     c = Config()
     assert (DIST_OPT["num_iter"], DIST_OPT["min_points"], DIST_OPT["step_length"], DIST_OPT["epsilon"]) == (
         c.num_iter_keyframe_optim, c.min_num_points_gauss_key, c.alpha_keyframe_optim, c.epsilon_keyframe_opt)
-    g1_curve, g1_launches, g1_tfunc = sub("(g1) the single-card optimizer at 100 keyframes x 4,096 points:",
+    g1_curve, g1_launches, g1_params = sub("(g1) the single-card optimizer at 100 keyframes x 4,096 points:",
                                           single_card_phase, device)
     sub("(g) K1-K3 at the spatial backend's per-rank shapes:", dist_kernel_rows, device, results, calls)
     dist_launches = sub("(g2, g4) parallel.spatial and the hash backend at world size 1 over NCCL:",
-                        one_rank_phase, device, g1_tfunc)
+                        one_rank_phase, device, g1_params)
     two = sub("(g3, g4, g5) 2 ranks on the one card over gloo:", two_rank_phase, device, g1_curve, ckpt_path)
     for k, v in two.items():
         dist_launches[k] += v

@@ -8,13 +8,12 @@ damped step with an infinity-norm clip, and run the line search.
 
   - tabular path (the fused pipeline): cell build K1, normal equations K2,
     line search over candidate 0 (the unstepped params) plus the step
-    fractions K3.  The table Jacobian comes from the problem's tables_jac
-    (on the card the window's K6, the submap's K7), by default from
-    torch.func.jacfwd over the table builder; the candidate tables from its
-    tables_batch, by default from torch.func.vmap;
+    fractions K3.  The tables, their Jacobian and the candidate tables come
+    from the problem's tables_jac and tables_batch (on the card the
+    window's K6, the submap's K7; on the CPU torch.func's twins);
   - structured path (the host pipeline): gaussians.build_cells, the closed
     form per-point residual gradient contracted against the problem's
-    pose-table Jacobian (torch.func.jacfwd over the small table graph),
+    pose-table Jacobian (from the same tables_jac builders),
     J^T J in the pose dtype, and the line search as a loop over the step
     fractions, each a forward plus the frozen cell residuals;
   - autodiff path (neither given; the two-scan problem of dmsa.problems):
@@ -33,6 +32,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
 from dmsa_lidar_slam_tpu_torch.ops import gaussians, voxel
 
 # stop reason codes
@@ -59,9 +59,9 @@ class TabularProblem(NamedTuple):
     tables        (params, data) -> (tab [n_table, 8] f32, extra [E])
     point_arrays  data -> (xs [N, 3] f32, tidx [N] int64)
     tables_jac    (params, data) -> (tab, extra, dtab [P, n_table, 8] f32,
-                  j_extra [P, E]); default: torch.func.jacfwd over `tables`
+                  j_extra [P, E])
     tables_batch  (cand_params [K, P], data) -> (tabs [K, n_table, 8] f32,
-                  extras [K, E]); default: torch.func.vmap over `tables`
+                  extras [K, E])
     forward_tab   (tab, extra, data) -> ForwardOut at the table's params;
                   default: the optimizer's forward function at the params
     """
@@ -69,8 +69,8 @@ class TabularProblem(NamedTuple):
     n_table: int
     tables: Callable
     point_arrays: Callable
-    tables_jac: Optional[Callable] = None
-    tables_batch: Optional[Callable] = None
+    tables_jac: Callable
+    tables_batch: Callable
     forward_tab: Optional[Callable] = None
 
 
@@ -156,20 +156,12 @@ def _iteration(forward_fn, tabular_fn, params, data, settings, min_grid_size, st
     "tables" (the pose tables and their Jacobian, and the line search's
     candidate tables) and "cells" (the forward, the K1 builds, K2, the
     solve, K3 and _finish); no span sits inside a transformed function."""
-    from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
-
     pdt, dev = params.dtype, params.device
     num_params = params.shape[0]
-
-    def tab_fn(p):
-        return tabular_fn.tables(p, data)
-
-    tables_jac = tabular_fn.tables_jac or (lambda p, _: tables_and_jacobian(tab_fn, p))
-    tables_batch = tabular_fn.tables_batch or (lambda cands, _: torch.func.vmap(tab_fn)(cands))
     forward_tab = tabular_fn.forward_tab or (lambda tab, extra, d: forward_fn(params, d))
 
     with span("tables"):
-        tab, extra0, dtab, j_extra = tables_jac(params, data)
+        tab, extra0, dtab, j_extra = tabular_fn.tables_jac(params, data)
 
     with span("cells"):
         out = forward_tab(tab, extra0, data)
@@ -198,7 +190,7 @@ def _iteration(forward_fn, tabular_fn, params, data, settings, min_grid_size, st
         ks = torch.tensor(settings.line_search_fracs, dtype=pdt, device=dev)
         cand_params = torch.cat([params[None, :], params[None, :] + ks[:, None] * step[None, :]], dim=0)
     with span("tables"):
-        tabs, extras = tables_batch(cand_params, data)
+        tabs, extras = tabular_fn.tables_batch(cand_params, data)
     with span("cells"):
         errs = fr.cand_errors(tabs, packed).to(pdt) + torch.sum(extras.to(pdt) ** 2, dim=1)
         return _finish(params, cand_params, errs, step, nan_step, n_gauss, settings)
@@ -342,10 +334,10 @@ def optimize(
     With a pipeline.metrics.Metrics, each iteration records the spans
     `<name>.gn.tables` and `<name>.gn.cells` (tabular path) and
     `<name>.gn.stop` (the stop read, the host's wait on the device), the
-    counter `<name>.gn.iters` the iterations run, and, for a problem that
-    supplies tables_jac, `<name>.gn.tables_kernel` the calls of its own
-    tables_jac and tables_batch made on CUDA tensors (two an iteration on
-    the card, 0 on the CPU)."""
+    counter `<name>.gn.iters` the iterations run, and on the tabular path
+    `<name>.gn.tables_kernel` the calls of the problem's tables_jac and
+    tables_batch made on CUDA tensors (two an iteration on the card, 0 on
+    the CPU)."""
     def span(part):
         return _no_span(part) if metrics is None else metrics.stage(f"{name}.gn.{part}")
 
@@ -375,7 +367,7 @@ def optimize(
             break
     if metrics is not None:
         metrics.count(f"{name}.gn.iters", iters)
-        if tabular_fn is not None and tabular_fn.tables_jac is not None:
+        if tabular_fn is not None:
             metrics.count(f"{name}.gn.tables_kernel", 2 * iters if params0.is_cuda else 0)
     return OptimResult(
         params=params,

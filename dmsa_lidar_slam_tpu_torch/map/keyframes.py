@@ -126,33 +126,17 @@ def make_forward(shapes: MapShapes, use_gravity: bool, use_odometry: bool, use_s
 def make_structured(shapes: MapShapes, use_gravity: bool, use_odometry: bool, use_split: bool):
     """Structured-Jacobian forward for the keyframe problem (see
     dmsa.optimizer): each point depends only on its keyframe's global pose
-    (q_k, t_k), so the pose-table Jacobian (Dq [K, 4, P], Dt [K, 3, P]) is
-    one torch.func.jacfwd over the small chain graph and the per-point
-    contraction a batched [Pp, 4] x [4, P] product per keyframe."""
+    (q_k, t_k), so the tables and their Jacobian come from keyframe_tables
+    (K7 on the card, torch.func on the CPU) and the per-point contraction
+    is a batched [Pp, 4] x [4, P] product per keyframe."""
 
     def structured(params, data: KeyframeMapData):
-        def tables(p):
-            chain, gp = global_chain(p, data, shapes)
-            return rot.axang2quat(gp.orient), gp.transl, _extras(chain, gp, data, use_gravity, use_odometry, p)
-
-        q, t, extra = tables(params)
-        dq, dt_, j_extra = torch.func.jacfwd(tables)(params)  # [K,4,P], [K,3,P], [E,P]
-        q32 = q.to(torch.float32)[:, None, :]
-        pts_w = rot.quat_rotate(q32, data.local_pts) + t.to(torch.float32)[:, None, :]
-        mask = data.pt_mask & data.kf_mask[:, None]
-        split = None
-        if use_split:
-            split = normal_split_ids(rot.quat_rotate(q32, data.local_normals).reshape(-1, 3))
-        out = ForwardOut(
-            points=pts_w.reshape(-1, 3),
-            mask=mask.reshape(-1),
-            ring_ids=data.pt_ring.reshape(-1),
-            extra=extra,
-            split_ids=split,
-        )
-        gq = dq.to(torch.float32)
-        gt = dt_.to(torch.float32)
+        tab, extra, dtab, j_extra = keyframe_tables(params, data, shapes, use_gravity, use_odometry)
+        out = _table_forward(tab, extra, data, shapes, use_split)
         k, ppk, p_dim = shapes.n_keyframes, shapes.n_pts_per_kf, params.shape[0]
+        q32 = tab[:k, None, 0:4]
+        gq = dtab[:, :k, 0:4].permute(1, 2, 0).contiguous()  # [K, 4, P]
+        gt = dtab[:, :k, 4:7].permute(1, 2, 0).contiguous()  # [K, 3, P]
 
         def contract(grad3_orig):
             g = grad3_orig.reshape(k, ppk, 3)
@@ -160,7 +144,7 @@ def make_structured(shapes: MapShapes, use_gravity: bool, use_odometry: bool, us
             jp = torch.einsum("kpc,kcq->kpq", aq, gq) + torch.einsum("kpc,kcq->kpq", g, gt)
             return jp.reshape(k * ppk, p_dim)
 
-        return out, contract, j_extra
+        return out, contract, j_extra.T
 
     return structured
 

@@ -97,7 +97,7 @@ def _cached_spatial_optimize(
     lambda_diag, step_length, max_step, epsilon, use_gravity, use_odometry, use_split, grid_factors,
 ):
     n_dev = mesh.size
-    tabular = kfm.make_tabular(kfm.MapShapes(n_keyframes, n_pts_per_kf), use_gravity, use_odometry)
+    tabular = kfm.make_tabular(kfm.MapShapes(n_keyframes, n_pts_per_kf), use_gravity, use_odometry, use_split)
 
     def iteration(params, xs, mask, rings, tidx, nrm, aux, grids):
         """One Gauss-Newton iteration on this rank's shard.  Returns
@@ -105,12 +105,7 @@ def _cached_spatial_optimize(
         four are replicated over the mesh."""
         pdt, dev = params.dtype, params.device
         num_params = params.shape[0]
-
-        def tab_fn(p):
-            return tabular.tables(p, aux)
-
-        tab, extra_c = tab_fn(params)
-        jtab, jextra = torch.func.jacfwd(tab_fn)(params)  # [Dtab, 8, P], [E, P]
+        tab, extra_c, dtab, j_extra = tabular.tables_jac(params, aux)  # K7 on the card
         world = world_points(tab, xs, tidx)
         # the normal-split channel from the current world normals rides as
         # one column: splits subdivide cells within a voxel, so ownership
@@ -140,8 +135,8 @@ def _cached_spatial_optimize(
 
         # normal equations: the local block over owned cells, one psum
         max_cells = packed.shape[1] // max(1, min_points) + len(packs)
-        hext = pmesh.psum(fr.gn_system(tab, jtab.permute(2, 0, 1), packed, max_cells=max_cells), mesh)
-        je = jextra.T.to(pdt)
+        hext = pmesh.psum(fr.gn_system(tab, dtab, packed, max_cells=max_cells), mesh)
+        je = j_extra.to(pdt)
         H = hext[:num_params, :num_params].to(pdt) + je @ je.T
         H = H + lambda_diag * torch.eye(num_params, dtype=pdt, device=dev)
         g = hext[:num_params, num_params].to(pdt) + je @ extra_c.to(pdt)
@@ -151,7 +146,7 @@ def _cached_spatial_optimize(
         # of the K errors
         ks = torch.tensor(line_search_fracs, dtype=pdt, device=dev)
         cand = torch.cat([params[None, :], params[None, :] + ks[:, None] * step[None, :]], dim=0)
-        tabs, extras = torch.func.vmap(tab_fn)(cand)
+        tabs, extras = tabular.tables_batch(cand, aux)
         errs = pmesh.psum(fr.cand_errors(tabs, packed).to(pdt), mesh) + torch.sum(extras.to(pdt) ** 2, dim=1)
         best = torch.argmin(errs)
         # too few gaussians rejects this iteration's step, as the single-card

@@ -77,24 +77,16 @@ def ctrl_stamps_from_dt(dt, shapes: WindowShapes):
 
 
 @lru_cache(maxsize=None)
-def _uniform_consts_np(shapes: WindowShapes):
-    return interp.uniform_grid_consts(shapes.n_dense, shapes.n_ctrl, shapes.interval_len, d=2)
-
-
-_CONST_CACHE = {}
-
-
-def _uniform_consts(shapes: WindowShapes, dtype, device):
-    key = (shapes, dtype, str(device))
-    if key not in _CONST_CACHE:
-        A, left, right, u = _uniform_consts_np(shapes)
-        _CONST_CACHE[key] = (
-            torch.as_tensor(A, dtype=dtype, device=device),
-            torch.as_tensor(left, device=device),
-            torch.as_tensor(right, device=device),
-            torch.as_tensor(u, dtype=dtype, device=device),
-        )
-    return _CONST_CACHE[key]
+def grid_consts(shapes: WindowShapes, device):
+    """The dense grid's interpolation operators (A [D, C] f64, left [D],
+    right [D], u [D] f64) on `device`, the one cache that dense_pose_tables
+    and K6 read.  Made outside any torch.func transform, so that a first
+    call from inside one still caches plain tensors, with storage for a
+    kernel to read."""
+    a_mat, left, right, u = interp.uniform_grid_consts(shapes.n_dense, shapes.n_ctrl, shapes.interval_len, d=2)
+    with torch._C._DisableFuncTorch():
+        return (torch.as_tensor(a_mat, dtype=torch.float64, device=device), torch.as_tensor(left, device=device),
+                torch.as_tensor(right, device=device), torch.as_tensor(u, dtype=torch.float64, device=device))
 
 
 def _full_anchor(anchor_orient, anchor_transl, n):
@@ -109,7 +101,7 @@ def dense_pose_tables(params, data: WindowData, shapes: WindowShapes):
     d_transl [D,3]) with the dt-invariant constant interpolation operators."""
     chain = cp.chain_from_params(params, _full_anchor(data.anchor_orient, data.anchor_transl, shapes.n_ctrl))
     gp = cp.relative2global(chain)
-    A, left, right, u = _uniform_consts(shapes, gp.transl.dtype, gp.transl.device)
+    A, left, right, u = grid_consts(shapes, gp.transl.device)
     d_transl = A @ gp.transl
     q = rot.axang2quat(gp.orient)
     q_dense = rot.quat_slerp(q[left], q[right], u)
@@ -205,18 +197,6 @@ def window_tables_batch_ref(cand_params, data: WindowData, shapes: WindowShapes,
     return torch.func.vmap(lambda p: _window_tables(p, data, shapes, use_imu))(cand_params)
 
 
-@lru_cache(maxsize=None)
-def grid_consts(shapes: WindowShapes, device):
-    """The dense grid's interpolation operators (A [D, C] f64, left [D],
-    right [D], u [D] f64) on `device`, made here and not taken from
-    _uniform_consts: that cache keeps what a torch.func transform made when
-    it was first filled inside one, tensors with no storage for a kernel to
-    read."""
-    a_mat, left, right, u = _uniform_consts_np(shapes)
-    return (torch.as_tensor(a_mat, dtype=torch.float64, device=device), torch.as_tensor(left, device=device),
-            torch.as_tensor(right, device=device), torch.as_tensor(u, dtype=torch.float64, device=device))
-
-
 def _n_extra(shapes, use_imu):
     return shapes.n_ctrl - 1 if use_imu else 0
 
@@ -271,36 +251,19 @@ def make_forward(shapes: WindowShapes, use_imu: bool):
 def make_structured(shapes: WindowShapes, use_imu: bool):
     """Structured-Jacobian forward of the window problem (see
     dmsa.optimizer): a point's world position depends only on its dense-
-    table row, and the dense tables on the P parameters through the small
-    control-chain graph, so the table Jacobian (Dq [D, 4, P], Dt [D, 3, P])
-    is one torch.func.jacfwd over that graph and the per-point chain rule
-    is the closed-form quat_rotate VJP plus one gathered contraction.
-    Static map points do not depend on the parameters: their rows are
-    zero."""
+    table row, so the tables and their Jacobian come from window_tables
+    (K6 on the card, torch.func on the CPU) and the per-point chain rule is
+    the closed-form quat_rotate VJP plus one gathered contraction.  Static
+    map points do not depend on the parameters: their rows are zero."""
 
     def structured(params, data: WindowData):
-        def tables(p):
-            chain, gp, q_dense, d_transl = dense_pose_tables(p, data, shapes)
-            if use_imu:
-                extra = imu_residuals(chain, gp, d_transl, data, shapes)
-            else:
-                extra = torch.zeros(0, dtype=p.dtype, device=p.device)
-            return q_dense, d_transl, extra
-
-        q_d, t_d, extra = tables(params)
-        dq, dt_, j_extra = torch.func.jacfwd(tables)(params)  # [D,4,P], [D,3,P], [E,P]
+        tab, extra, dtab, j_extra = window_tables(params, data, shapes, use_imu)
+        out = _table_forward(tab, extra, data, shapes)
         idx = data.pt_tform_idx.to(torch.int64)
-        qp = q_d.to(torch.float32)[idx]
-        tp = t_d.to(torch.float32)[idx]
-        pts_w = rot.quat_rotate(qp, data.local_pts) + tp
-        out = ForwardOut(
-            points=torch.cat([pts_w, data.static_pts], dim=0),
-            mask=torch.cat([data.pt_mask, data.static_mask]),
-            ring_ids=torch.cat([data.pt_ring, data.static_ring]),
-            extra=extra,
-        )
-        gq = dq.to(torch.float32)[idx]  # [NW, 4, P]
-        gt = dt_.to(torch.float32)[idx]  # [NW, 3, P]
+        qp = tab[idx, 0:4]
+        d = shapes.n_dense
+        gq = dtab[:, :d, 0:4].permute(1, 2, 0).contiguous()[idx]  # [NW, 4, P]
+        gt = dtab[:, :d, 4:7].permute(1, 2, 0).contiguous()[idx]  # [NW, 3, P]
         nw = shapes.n_window_pts
         p_dim = params.shape[0]
 
@@ -311,7 +274,7 @@ def make_structured(shapes: WindowShapes, use_imu: bool):
             zeros = torch.zeros(shapes.n_static, p_dim, dtype=jp.dtype, device=jp.device)
             return torch.cat([jp, zeros], dim=0)
 
-        return out, contract, j_extra
+        return out, contract, j_extra.T
 
     return structured
 

@@ -4,7 +4,7 @@ of it, on the CPU:
   - the reference path (torch.func's jacfwd and vmap over the submap's
     table builder) returns the kernel's layout and dtypes in both modes;
   - optimize on CPU tensors takes torch.func as before, bit for bit a
-    TabularProblem without the entries, and never launches K7;
+    TabularProblem given the *_ref twins, and never launches K7;
   - the submap's forward read from the table is make_forward's, bit for
     bit, with and without the split channel;
   - past K7's keyframes the submap keeps the entry and K7 raises;
@@ -62,7 +62,10 @@ def test_optimize_on_cpu_takes_torch_func_bit_for_bit(monkeypatch):
     settings = opt.OptimSettings(num_iter=3, min_num_points_per_set=6, min_num_gaussians=10, step_length_optim=0.3)
     fwd = kfm.make_forward(shapes, True, True, True)
     with_entry = kfm.make_tabular(shapes, True, True, True)
-    without = opt.TabularProblem(with_entry.n_table, with_entry.tables, with_entry.point_arrays)
+    without = opt.TabularProblem(
+        with_entry.n_table, with_entry.tables, with_entry.point_arrays,
+        tables_jac=lambda p, d: kfm.keyframe_tables_ref(p, d, shapes, True, True),
+        tables_batch=lambda cands, d: kfm.keyframe_tables_batch_ref(cands, d, shapes, True, True))
     calls = {"jacfwd": 0, "vmap": 0}
     for name in calls:
         real = getattr(torch.func, name)

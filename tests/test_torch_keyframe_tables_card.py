@@ -12,6 +12,8 @@ P = 594):
   - each mode is one kernel and no copy;
   - a submap solve on the card calls K7 twice an iteration
     (submap.gn.tables_kernel = 2 x submap.gn.iters);
+  - the structured path's make_structured (the host pipeline's) launches
+    K7 for the submap and K6 for the window once a call;
 
 in every regime of tests/torch_keyframes.py and the four combinations of
 the gravity and odometry terms.
@@ -31,9 +33,10 @@ from dmsa_lidar_slam_tpu_torch.dmsa import optimizer as opt
 from dmsa_lidar_slam_tpu_torch.map import keyframes as kfm
 from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
 from dmsa_lidar_slam_tpu_torch.pipeline.metrics import Metrics
+from dmsa_lidar_slam_tpu_torch.trajectory import continuous as ct
 from tests.torch_keyframes import FLAGS, REGIMES, keyframe_problem, scene_submap
 from tests.torch_parity import nn, require_cuda
-from tests.torch_window import candidates, check_batch, check_tables
+from tests.torch_window import candidates, check_batch, check_tables, window_problem
 
 
 def _same_bits(a, b):
@@ -123,3 +126,25 @@ def test_submap_solve_on_card_calls_k7_twice_an_iteration():
     assert iters == int(res.num_iters) >= 1
     assert m.counters["submap.gn.tables_kernel"] == 2 * iters
     assert cuda_lib.LAUNCHES["keyframe_tables"] == before + 2 * iters
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["window", "keyframe"])
+def test_structured_on_card_launches_its_table_kernel_once(kind):
+    """make_structured on CUDA tensors takes its tables and their Jacobian
+    from K6 (window) or K7 (submap): one launch a call, none of the other."""
+    require_cuda()
+    if kind == "window":
+        shapes, data, params = window_problem(3, device="cuda")
+        structured, mine, other = ct.make_structured(shapes, True), "window_tables", "keyframe_tables"
+    else:
+        shapes, data, params = keyframe_problem(3, s=48, ppk=8, device="cuda")
+        structured, mine, other = kfm.make_structured(shapes, True, True, True), "keyframe_tables", "window_tables"
+    before = dict(cuda_lib.LAUNCHES)
+    out, contract, j_extra = structured(params, data)
+    jp = contract(torch.ones_like(out.points))
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[mine] == before[mine] + 1
+    assert cuda_lib.LAUNCHES[other] == before[other]
+    assert j_extra.shape == (out.extra.shape[0], params.shape[0])
+    assert bool(jp.isfinite().all()) and bool(out.points.isfinite().all())

@@ -18,7 +18,10 @@ port runs on 4 gloo ranks (tests/torch_dist.py), the reference on a
   - the ranks' parameters are bit-identical (a ring all-reduce gives every
     rank the same bits, and the solve is replicated);
   - no cell is split across ranks (the owner hash and K1's keys see the
-    same floor(world / grid) of the same world points).
+    same floor(world / grid) of the same world points);
+  - each iteration takes its tables, their Jacobian and the candidate
+    tables from the submap's builders, keyframe_tables and
+    keyframe_tables_batch (K7 on the card), one call each.
 """
 
 import numpy as np
@@ -173,3 +176,22 @@ def test_host_stop_returns_the_reference_tuple(name, start, settings):
     assert torch.equal(again[1], err) and torch.equal(again[2], cells) and torch.equal(again[3], overflow)
     if start == "perturbed":  # the epsilon stop took its step, then froze
         assert not torch.equal(params, torch.as_tensor(params0))
+
+
+@pytest.mark.parametrize("name", ["plain", "split"])
+def test_spatial_reads_the_submaps_table_builders(monkeypatch, name):
+    """One call of keyframe_tables and one of keyframe_tables_batch an
+    iteration, at world size 1 (no process group)."""
+    calls = {"keyframe_tables": 0, "keyframe_tables_batch": 0}
+    for fn in calls:
+        real = getattr(kfm, fn)
+
+        def counted(*a, _real=real, _fn=fn):
+            calls[_fn] += 1
+            return _real(*a)
+
+        monkeypatch.setattr(kfm, fn, counted)
+    pmesh.reset_collectives()
+    _port(name)
+    iterations = pmesh.SCOPES["iteration"]
+    assert iterations >= 2 and calls == {"keyframe_tables": iterations, "keyframe_tables_batch": iterations}

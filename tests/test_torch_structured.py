@@ -21,6 +21,11 @@ Tolerances, with their reasons:
     one iteration the parameters agree to 2e-3 and after six to 5e-3, with
     the same stop reason and iteration count, valid cells within 2% and the
     final error within 2%.
+
+test_structured_reads_the_problems_table_builder holds the port alone:
+make_structured takes its tables and their Jacobian from window_tables /
+keyframe_tables (K6 / K7 on the card), and on the CPU gives, bit for bit,
+what torch.func's jacfwd over the pose-table graph gives, written out here.
 """
 
 import numpy as np
@@ -34,11 +39,14 @@ from dmsa_lidar_slam_tpu.dmsa import optimizer as jopt
 from dmsa_lidar_slam_tpu.map import keyframes as jkfm
 from dmsa_lidar_slam_tpu.ops import gaussians as jgauss
 from dmsa_lidar_slam_tpu.trajectory import continuous as jct
+from dmsa_lidar_slam_tpu_torch.core import rotations as rot
 from dmsa_lidar_slam_tpu_torch.dmsa import optimizer as topt
 from dmsa_lidar_slam_tpu_torch.map import keyframes as tkfm
 from dmsa_lidar_slam_tpu_torch.ops import gaussians as tgauss
 from dmsa_lidar_slam_tpu_torch.ops import voxel
 from dmsa_lidar_slam_tpu_torch.trajectory import continuous as tct
+from tests import torch_keyframes as tk
+from tests import torch_window as tw
 from tests.test_torch_optimizer import _check_same, _keyframe_problem, _port_shapes, _to_port, _window_problem
 from tests.torch_parity import nn, tt
 
@@ -172,3 +180,82 @@ def test_optimize_needs_a_jacobian_path():
     assert int(ra.stop_reason) == int(rs.stop_reason) and int(ra.num_gaussians) == int(rs.num_gaussians)
     assert float(torch.linalg.norm(rs.params - tt(params))) > 1e-3
     np.testing.assert_allclose(nn(ra.params), nn(rs.params), atol=1e-6)
+
+
+def _window_by_jacfwd(shapes, use_imu, params, data):
+    """The window's (out, contract, j_extra) from torch.func.jacfwd over
+    the dense pose tables and the IMU residuals."""
+
+    def tables(p):
+        chain, gp, q_dense, d_transl = tct.dense_pose_tables(p, data, shapes)
+        extra = tct.imu_residuals(chain, gp, d_transl, data, shapes) if use_imu else torch.zeros(0, dtype=p.dtype)
+        return q_dense, d_transl, extra
+
+    q, t, extra = tables(params)
+    dq, dt_, j_extra = torch.func.jacfwd(tables)(params)  # [D, 4, P], [D, 3, P], [E, P]
+    idx = data.pt_tform_idx.to(torch.int64)
+    qp, gq, gt = q.to(torch.float32)[idx], dq.to(torch.float32)[idx], dt_.to(torch.float32)[idx]
+    out = topt.ForwardOut(
+        points=torch.cat([rot.quat_rotate(qp, data.local_pts) + t.to(torch.float32)[idx], data.static_pts]),
+        mask=torch.cat([data.pt_mask, data.static_mask]), ring_ids=torch.cat([data.pt_ring, data.static_ring]),
+        extra=extra)
+
+    def contract(g):
+        g = g[:shapes.n_window_pts]
+        aq = rot.quat_rotate_vjp_q(qp, data.local_pts, g)
+        jp = torch.einsum("nc,ncp->np", aq, gq) + torch.einsum("nc,ncp->np", g, gt)
+        return torch.cat([jp, torch.zeros(shapes.n_static, params.shape[0], dtype=jp.dtype)])
+
+    return out, contract, j_extra
+
+
+def _keyframes_by_jacfwd(shapes, flag, params, data):
+    """The submap's (out, contract, j_extra) from torch.func.jacfwd over the
+    keyframes' global poses and the gravity and odometry residuals, with
+    the split channel."""
+
+    def tables(p):
+        chain, gp = tkfm.global_chain(p, data, shapes)
+        return rot.axang2quat(gp.orient), gp.transl, tkfm._extras(chain, gp, data, flag, flag, p)
+
+    q, t, extra = tables(params)
+    dq, dt_, j_extra = torch.func.jacfwd(tables)(params)  # [K, 4, P], [K, 3, P], [E, P]
+    q32, gq, gt = q.to(torch.float32)[:, None, :], dq.to(torch.float32), dt_.to(torch.float32)
+    out = topt.ForwardOut(
+        points=(rot.quat_rotate(q32, data.local_pts) + t.to(torch.float32)[:, None, :]).reshape(-1, 3),
+        mask=(data.pt_mask & data.kf_mask[:, None]).reshape(-1), ring_ids=data.pt_ring.reshape(-1), extra=extra,
+        split_ids=tkfm.normal_split_ids(rot.quat_rotate(q32, data.local_normals).reshape(-1, 3)))
+
+    def contract(g):
+        g = g.reshape(shapes.n_keyframes, shapes.n_pts_per_kf, 3)
+        aq = rot.quat_rotate_vjp_q(q32, data.local_pts, g)
+        jp = torch.einsum("kpc,kcq->kpq", aq, gq) + torch.einsum("kpc,kcq->kpq", g, gt)
+        return jp.reshape(-1, params.shape[0])
+
+    return out, contract, j_extra
+
+
+@pytest.mark.parametrize("kind,flag", [("window", True), ("window", False), ("keyframe", True), ("keyframe", False)])
+def test_structured_reads_the_problems_table_builder(monkeypatch, kind, flag):
+    """make_structured calls the problem's table builder once a call, and
+    its forward, contraction and extra Jacobian are torch.func's bit for
+    bit."""
+    if kind == "window":
+        shapes, data, params = tw.window_problem(3)
+        mod, builder, structured = tct, "window_tables", tct.make_structured(shapes, flag)
+        by_jacfwd = _window_by_jacfwd(shapes, flag, params, data)
+    else:
+        shapes, data, params = tk.keyframe_problem(3, "inactive", s=7, ppk=50)
+        mod, builder, structured = tkfm, "keyframe_tables", tkfm.make_structured(shapes, flag, flag, True)
+        by_jacfwd = _keyframes_by_jacfwd(shapes, flag, params, data)
+    calls = []
+    real = getattr(mod, builder)
+    monkeypatch.setattr(mod, builder, lambda *a: calls.append(1) or real(*a))
+    out, contract, j_extra = structured(params, data)
+    assert len(calls) == 1
+    want_out, want_contract, want_j_extra = by_jacfwd
+    for a, b in zip(out, want_out):
+        assert (a is None and b is None) or torch.equal(a, b)
+    g = torch.as_tensor(np.random.default_rng(4).standard_normal(tuple(out.points.shape)), dtype=torch.float32)
+    assert torch.equal(contract(g), want_contract(g))
+    assert torch.equal(j_extra, want_j_extra)

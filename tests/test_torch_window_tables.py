@@ -7,7 +7,9 @@ use of it, on the CPU:
     does (K7), and past K6's control poses the window keeps them and K6
     raises;
   - optimize on CPU tensors takes torch.func as before, bit for bit a
-    TabularProblem without the entry, and never launches K6;
+    TabularProblem given the *_ref twins, and never launches K6;
+  - the grid operators stay plain tensors when torch.func filled their
+    cache;
   - the window's forward read from the table is make_forward's, bit for
     bit;
   - K6's source, built for the host (tests/cuda_host.py), against the
@@ -66,14 +68,14 @@ def test_past_the_kernels_control_poses_the_window_keeps_the_entry_and_k6_raises
         ct._k6_launch(params, 0, data, shapes, True, None, None, None, None)
 
 
-def test_grid_consts_have_storage_after_torch_func(monkeypatch):
+def test_grid_consts_have_storage_after_torch_func():
     """K6 reads the grid operators by pointer: they stay plain tensors when
-    torch.func made the window's tables first (continuous._uniform_consts,
-    filled inside jacfwd, caches wrapped tensors without storage)."""
-    monkeypatch.setattr(ct, "_CONST_CACHE", {})
+    torch.func made the window's tables first (grid_consts, first filled
+    inside jacfwd, would otherwise cache wrapped tensors without storage)."""
     ct.grid_consts.cache_clear()
     shapes, data, params = tw.window_problem(2)
     torch.func.jacfwd(lambda p: ct._window_tables(p, data, shapes, True))(params)
+    assert ct.grid_consts.cache_info().currsize == 1
     for t in ct.grid_consts(shapes, torch.device("cpu")):
         assert t.data_ptr() != 0
 
@@ -106,7 +108,10 @@ def test_optimize_on_cpu_takes_torch_func_bit_for_bit(monkeypatch):
     settings = opt.OptimSettings(num_iter=3, min_num_points_per_set=6, min_num_gaussians=10, step_length_optim=0.3)
     fwd = ct.make_forward(shapes, True)
     with_entry = ct.make_tabular(shapes, True)
-    without = opt.TabularProblem(with_entry.n_table, with_entry.tables, with_entry.point_arrays)
+    without = opt.TabularProblem(
+        with_entry.n_table, with_entry.tables, with_entry.point_arrays,
+        tables_jac=lambda p, d: ct.window_tables_ref(p, d, shapes, True),
+        tables_batch=lambda cands, d: ct.window_tables_batch_ref(cands, d, shapes, True))
     calls = {"jacfwd": 0, "vmap": 0}
     for name in calls:
         real = getattr(torch.func, name)
