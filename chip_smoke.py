@@ -24,7 +24,9 @@ printed on its own lines and none of them caught:
      masked share (WINDOW_MASKED_SHARE); K1-K3 at the long configuration's
      submap (phase h: n = 196,608 per grid over 49 table rows with the
      split channel, masked at LONG_SUBMAP_MASKED_SHARE; K2 at P = 282, its
-     dense-J path; K3 at K = 15); K1's 12-row layout (observation
+     dense-J path; K3 at K = 15); K1 at the submap view a span-4 solve
+     sees (48 slots of 4,096 points, 44 keyframes masked: one masked run
+     of ~92% of n), in both layouts; K1's 12-row layout (observation
      weights uniform in [0.5, 2] and the split channel of the surfaces'
      normals, at n = 28,672, 5% and WINDOW_MASKED_SHARE masked; its
      launches are cuda_lib.BRANCHES["build_rows12"]); K5 with its radius
@@ -272,6 +274,9 @@ LONG_SUBMAP_MASKED_SHARE = 0.286
 # two thirds of that
 LONG_HOST_SCANS = 40
 ROWS12_SEED = 40  # K1's 12-row rows (phase 2)
+# K1 at the submap view a solve of span 4 sees (phase 2): the active
+# keyframes of LONG_SUBMAP_SHAPE's 48 slots, the others masked
+SUBMAP_VIEW_SEED, SUBMAP_VIEW_ACTIVE = 44, 4
 K6_SEED = 60  # K6's window (phase 2)
 K7_SEED = 70  # K7's submaps (phase 2)
 # phase (i): the weights' seed; one iteration through the kernels against
@@ -368,12 +373,13 @@ def _events_busy(events):
     return busy_us / 1000.0, kernels
 
 
-def _scene_problem(rng, n, dtab, device, masked=0.05, with_split=False):
+def _scene_problem(rng, n, dtab, device, masked=0.05, with_split=False, tidx=None):
     """Points on the synthetic room's surfaces, spread over a pose table:
     world = quat_rotate(q[tidx], xs) + t[tidx] exactly as the kernels read it;
     a share `masked` of them masked.  with_split: also the split channel of
     their surfaces' normals (map.keyframes.normal_split_ids), as a seventh
-    value; the draws are the same either way."""
+    value; the draws are the same either way.  tidx: each point's table row
+    in place of the drawn ones (the draws unchanged)."""
     import numpy as np
     import torch
 
@@ -383,8 +389,9 @@ def _scene_problem(rng, n, dtab, device, masked=0.05, with_split=False):
 
     world, normals = sample_scene_points(rng, n, return_normals=True)
     world = world + 0.01 * rng.standard_normal((n, 3))
-    tidx = rng.integers(0, dtab - 1, size=n)
-    tidx[:: 9] = dtab - 1  # static points on the identity row
+    drawn = rng.integers(0, dtab - 1, size=n)
+    drawn[:: 9] = dtab - 1  # static points on the identity row
+    tidx = drawn if tidx is None else tidx
     aa = 0.1 * rng.standard_normal((dtab - 1, 3))
     q = rot.axang2quat(torch.as_tensor(aa)).numpy()
     t = 0.5 * rng.standard_normal((dtab - 1, 3))
@@ -605,6 +612,30 @@ def long_rows(results, calls, device):
     _k3_row(results, calls, device, packed, tab, f"K=15 Dtab={dtab} M={m} long submap")
 
 
+def submap_view_rows(results, calls, device):
+    """K1 at the submap view's shape and masked share, in both layouts:
+    48 keyframe slots of 4,096 points (one table row each), the last
+    SUBMAP_VIEW_ACTIVE of them active (5% of their points masked) and the
+    others masked, as a solve of span 4 sees them (`handheld`), so that the
+    masked points form one run of ~92% of n; split ids as the submap's;
+    the 12-row layout also with observation weights."""
+    import numpy as np
+    import torch
+
+    s, ppk = LONG_SUBMAP_SHAPE
+    n = s * ppk
+    rng = np.random.default_rng(SUBMAP_VIEW_SEED)
+    tidx = np.repeat(np.arange(s), ppk)
+    pts, mask, rings, xs, ti, tab, split = _scene_problem(rng, n, s + 1, device, 0.05, with_split=True, tidx=tidx)
+    mask &= ti >= s - SUBMAP_VIEW_ACTIVE
+    obs = torch.as_tensor(rng.uniform(0.5, 2.0, size=n), dtype=torch.float32, device=device)
+    g = torch.tensor(0.4, dtype=torch.float32, device=device)
+    label = f"n={n} submap view, {s - SUBMAP_VIEW_ACTIVE} of {s} keyframes masked"
+    _k1_row(results, calls, [(pts, mask, rings, xs, ti, f * g, 10, tab, split) for f in (1.0, 2.5)], label)
+    _k1_row(results, calls, [(pts, mask, rings, xs, ti, f * g, 10, tab, split, obs) for f in (1.0, 2.5)],
+            label + ", 12-row, weights")
+
+
 def rows12_rows(results, calls, device):
     """K1's 12-row layout at n = 28,672 over the 502-row table: observation
     weights uniform in [0.5, 2] and the split channel of the surfaces'
@@ -772,6 +803,7 @@ def kernel_checks(device):
     # K1-K3 at the long configuration's submap (phase h): 2 x 196,608
     # rows over 49 table rows with the split channel, P = 282
     long_rows(results, calls, device)
+    submap_view_rows(results, calls, device)
 
     # K1's 12-row layout (phase i's): the window's shape with observation
     # weights and the split channel, at 5% and at the window's real masked

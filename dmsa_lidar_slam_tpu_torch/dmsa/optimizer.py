@@ -337,7 +337,9 @@ def optimize(
     counter `<name>.gn.iters` the iterations run, and on the tabular path
     `<name>.gn.tables_kernel` the calls of the problem's tables_jac and
     tables_batch made on CUDA tensors (two an iteration on the card, 0 on
-    the CPU)."""
+    the CPU) and the device counter `<name>.gn.k1_long_positions`, the
+    sorted positions of K1's calls that lay in runs longer than one chunk
+    (fused_residuals.long_positions_into: read once, by summary())."""
     def span(part):
         return _no_span(part) if metrics is None else metrics.stage(f"{name}.gn.{part}")
 
@@ -356,15 +358,19 @@ def optimize(
     err, err0 = inf, inf
     ng = torch.tensor(0, dtype=torch.int32, device=dev)
     iters = 0
-    for _ in range(settings.num_iter):
-        params, done, reason, err, ng = iteration(params, data, settings, min_grid_size, step_length, max_step)
-        if iters == 0:
-            err0 = err
-        iters += 1
-        with span("stop"):
-            stop = bool(done)  # host sync: the stop decision
-        if stop:
-            break
+    counting = contextlib.nullcontext()
+    if metrics is not None and tabular_fn is not None:
+        counting = fr.long_positions_into(metrics.device_counter(f"{name}.gn.k1_long_positions", dev))
+    with counting:
+        for _ in range(settings.num_iter):
+            params, done, reason, err, ng = iteration(params, data, settings, min_grid_size, step_length, max_step)
+            if iters == 0:
+                err0 = err
+            iters += 1
+            with span("stop"):
+                stop = bool(done)  # host sync: the stop decision
+            if stop:
+                break
     if metrics is not None:
         metrics.count(f"{name}.gn.iters", iters)
         if tabular_fn is not None:

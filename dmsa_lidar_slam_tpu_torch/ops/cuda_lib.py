@@ -40,11 +40,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # pts, mask, split, n, g_host, grid, key, stream
     "k1_voxel_keys": [_P, _P, _P, _I, _F, _P, _P, _P],
-    # tab, xs, tidx, rings, mask, key_s, order, n, min_points, floor, packed, partial, nvalid,
-    # num_raw, stream
-    "k1_build": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
+    # tab, xs, tidx, rings, mask, key_s, order, n, min_points, floor, packed, scratch, nvalid,
+    # num_raw, long_out, long_acc, stream
+    "k1_build": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P],
     # pts, obs, then k1_build's arguments after tab
-    "k1_build_rows12": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
+    "k1_build_rows12": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P],
+    # n, the scratch array's bytes (out)
+    "k1_scratch_bytes": [_I, _P],
     "dmsa_chunk_positions": [],
     # m, P (K2) or K (K3), the scratch arrays' bytes (out)
     "k2_scratch_bytes": [_I, _I, _P],
@@ -157,8 +159,9 @@ def library():
 def scratch_bytes(name, count, *dims):
     """The bytes of each of the `count` scratch arrays of a kernel call, as
     the library's own `name` entry point lays them out for the call's sizes
-    `dims`: k2_scratch_bytes (m positions, P), k3_scratch_bytes (m, K),
-    k5_scratch_bytes (n points, on the current device)."""
+    `dims`: k1_scratch_bytes (n positions), k2_scratch_bytes (m positions,
+    P), k3_scratch_bytes (m, K), k5_scratch_bytes (n points, on the current
+    device)."""
     out = (ctypes.c_longlong * count)()
     check(getattr(library(), name)(*dims, out), name)
     return tuple(out)

@@ -31,6 +31,8 @@ allocations, the one sort of K1 and the operand copies of prep_tables /
 prep_jac_tables, and never wait for the card.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -102,7 +104,23 @@ def _scratch(device, *nbytes):
 # K1: cell build
 # --------------------------------------------------------------------------
 
-K1_BLOCK_POSITIONS = 256  # sorted positions per build_fwd block (csrc/k1_build.cu)
+K1_CHUNK = 256  # sorted positions per chunk of K1's build (csrc/k1_build.cu kBuildChunk)
+
+# int64 scalars that each K1 call adds its long-run positions to (the innermost)
+_long_sinks = []
+
+
+@contextlib.contextmanager
+def long_positions_into(acc):
+    """While open, every build_packed adds to `acc` (an int64 scalar on the
+    points' device) the sorted positions of its runs longer than K1_CHUNK,
+    the runs K1 spreads over chunks: on the card K1's finish kernel adds
+    them (no launch, no sync), on the CPU the plain version."""
+    _long_sinks.append(acc)
+    try:
+        yield acc
+    finally:
+        _long_sinks.pop()
 
 
 def _grid_operand(grid_size, device):
@@ -162,9 +180,12 @@ def build_packed(points_w, mask, ring_ids, xs, tidx, grid_size, min_points: int,
     scalars (int32, int64).
 
     On the card: the key kernel, one stable torch.sort of the keys, then the
-    build kernel gathers through the sort order itself and a second kernel
-    normalises the weights (csrc/k1_build.cu; the 12-row layout is the build
-    kernel's second instantiation, counted in BRANCHES["build_rows12"]).
+    build kernel gathers through the sort order itself, a run longer than
+    K1_CHUNK spread over the chunks it meets, and a second kernel finishes
+    those runs and normalises the weights (csrc/k1_build.cu; the 12-row
+    layout is the kernels' second instantiation, counted in
+    BRANCHES["build_rows12"]).  Inside long_positions_into the call adds
+    its long-run positions to the counter.
     """
     if not points_w.is_cuda:
         return build_packed_ref(points_w, mask, ring_ids, xs, tidx, grid_size, min_points, tab, split_ids,
@@ -186,11 +207,17 @@ def build_packed(points_w, mask, ring_ids, xs, tidx, grid_size, min_points: int,
     key = _k1_keys(points_w, mask, grid_size, split_ids, lib, stream)
     key_s, order = torch.sort(key, stable=True)
     packed = torch.empty((PACK_ROWS, n), dtype=_F32, device=dev)
-    # int64 words: num_raw, nvalid (int32), then 16 bytes per build block
-    aux = torch.empty(2 + 2 * (-(-n // K1_BLOCK_POSITIONS)), dtype=torch.int64, device=dev)
+    # int64 words: num_raw, then nvalid and the long-run positions (int32
+    # each), then the build's scratch
+    (nbytes,) = cuda_lib.scratch_bytes("k1_scratch_bytes", 1, n)
+    aux = torch.empty(2 + -(-nbytes // 8), dtype=torch.int64, device=dev)
+    acc = None
+    if _long_sinks:
+        cuda_lib.require(_long_sinks[-1], "long-run counter", torch.int64, (), dev)
+        acc = cuda_lib.ptr(_long_sinks[-1])
     P = cuda_lib.ptr
     tail = (P(xs), P(tidx), P(ring_ids), P(mask), P(key_s), P(order), n, int(min_points), float(COV_EIG_FLOOR),
-            P(packed), aux.data_ptr() + 16, aux.data_ptr() + 8, P(aux), stream)
+            P(packed), aux.data_ptr() + 16, aux.data_ptr() + 8, P(aux), aux.data_ptr() + 12, acc, stream)
     if rows12:
         cuda_lib.BRANCHES["build_rows12"] += 1
         obs = None if obs_weight is None else P(obs_weight)
@@ -214,6 +241,8 @@ def build_packed_ref(points_w, mask, ring_ids, xs, tidx, grid_size, min_points: 
         obs_weight=obs_weight,
     )
     packed = pack_rows(cells, aux_s[:, :3], aux_s[:, 3])
+    if _long_sinks:
+        _long_sinks[-1] += torch.sum(cells.end - cells.start > K1_CHUNK)
     return packed, cells.num_valid.to(torch.int32), cells.num_raw
 
 

@@ -13,9 +13,12 @@ The reference's only performance metric is the realtime ratio printed every
     it.  With no profile recording it costs two clock reads and a few dict
     updates: a span reads nothing from the device, launches nothing and
     syncs nothing;
-  - count(name, n): a host counter.
+  - count(name, n): a host counter;
+  - device_counter(name, device): an int64 scalar on the device that
+    kernels add to while the host goes on (no launch, no sync per add).
 
-summary() lists both under their names.
+summary() lists all three under their names, and reads the device
+counters in one transfer.
 """
 
 import time
@@ -36,6 +39,7 @@ class Metrics:
         self.stage_calls = defaultdict(int)
         self.stage_parent = {}
         self.counters = defaultdict(int)
+        self.device_counters = {}
         self._open = []  # per open span: [name, seconds of the spans closed inside it]
 
     def start_clock(self, data_stamp: float):
@@ -46,7 +50,8 @@ class Metrics:
     def reset_stages(self):
         """Zero the spans and counters (a bench calls this after its warm-up
         so that the summary covers the timed region only)."""
-        for d in (self.stage_time, self.stage_self, self.stage_calls, self.stage_parent, self.counters):
+        for d in (self.stage_time, self.stage_self, self.stage_calls, self.stage_parent, self.counters,
+                  self.device_counters):
             d.clear()
 
     def realtime_ratio(self, data_stamp: float) -> float:
@@ -86,6 +91,14 @@ class Metrics:
     def count(self, name: str, n: int = 1):
         self.counters[name] += n
 
+    def device_counter(self, name: str, device) -> torch.Tensor:
+        """The int64 scalar on `device` that counter `name` sums (made at
+        its first use, one fill)."""
+        t = self.device_counters.get(name)
+        if t is None:
+            t = self.device_counters[name] = torch.zeros((), dtype=torch.int64, device=device)
+        return t
+
     def summary(self) -> dict:
         """{span: {total_s, calls, self_s, parent}, counter: {count}}."""
         out = {
@@ -94,4 +107,7 @@ class Metrics:
             for name in self.stage_time
         }
         out.update({name: {"count": n} for name, n in self.counters.items()})
+        if self.device_counters:
+            values = torch.stack(list(self.device_counters.values())).tolist()  # one sync
+            out.update({name: {"count": n} for name, n in zip(self.device_counters, values)})
         return dict(sorted(out.items()))

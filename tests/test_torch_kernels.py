@@ -7,7 +7,12 @@ a machine that has a CUDA card and no jax:
 
 (--noconftest: tests/conftest.py pins jax to the CPU.)  The tests marked
 `gpu` hold each kernel against its plain version on the same inputs on the
-card, with chip_smoke.py's tolerances, and skip without a card.  The
+card, with chip_smoke.py's tolerances, and skip without a card.  K1 also
+where its runs outgrow one chunk (tests/torch_k1.py: the submap view's
+masked tail, a valid cell over more than 8 chunks, runs on chunk bounds),
+with its long-run positions counted, and, where every run fits in one
+chunk, bit for bit as recorded from the design that preceded the chunk
+cut.  The
 others run on the CPU: a wrapper given CPU tensors returns its plain
 version's result and launches nothing, and the plain statement of K2's
 chunk/piece cut (fused_residuals.gn_system_pieces_ref) is held against the
@@ -35,6 +40,8 @@ exactly (the same op-by-op d2), its means to 2e-6 m and its covariances to
 1e-5 of their scale (f32 sums of the same offsets in another order).
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -43,6 +50,7 @@ from dmsa_lidar_slam_tpu_torch.core import rotations as rot
 from dmsa_lidar_slam_tpu_torch.ops import cuda_lib
 from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as fr
 from dmsa_lidar_slam_tpu_torch.ops import nn_bruteforce as nb
+from tests import torch_k1
 from tests.torch_parity import nn, require_cuda
 
 
@@ -78,22 +86,48 @@ def _problem(seed, n=4096, dtab=34, giant_cell=False, masked=0.1):
     return args, dtabs, tabs
 
 
+# K1 where runs outgrow one chunk (tests/torch_k1.py), at the submap view's
+# shape: 48 keyframes of 4,096 points, 44 masked (span 4) or 36 (span 12);
+# a valid cell over more than 8 chunks; runs laid on chunk bounds
+K1_LONG = {
+    "submap44": lambda layout: torch_k1.submap_case(44, active=4, layout=layout),
+    "submap36": lambda layout: torch_k1.submap_case(36, active=12, layout=layout),
+    "giant_chunks": lambda layout: torch_k1.submap_case(9, active=4, giant=3000, layout=layout),
+    "boundary": lambda layout: torch_k1.boundary_case(7, layout=layout),
+}
+K1_CASES = [False, True, *sorted(K1_LONG)]
+
+
+def _k1_problem(case, seed, layout="compact"):
+    """build_packed's (args, kw) and K2's / K3's table operands for a K1
+    case: _problem's (a giant cell or not) or one of K1_LONG's."""
+    if isinstance(case, bool):
+        args, dtabs, tabs = _problem(seed, giant_cell=case)
+        return args, {}, dtabs, tabs
+    args, kw = K1_LONG[case](layout)
+    tab = args[7]
+    rng = np.random.default_rng(seed)
+    dtabs = torch.as_tensor(0.1 * rng.standard_normal((6,) + tuple(tab.shape)), dtype=torch.float32)
+    dtabs[:, -1] = 0.0
+    tabs = tab[None] + torch.as_tensor(1e-3 * rng.standard_normal((15,) + tuple(tab.shape)), dtype=torch.float32)
+    tabs[:, :, 7] = 0.0
+    tabs[:, :, 0:4] /= torch.linalg.norm(tabs[:, :, 0:4], dim=2, keepdim=True)
+    return args, kw, dtabs, tabs
+
+
+def _on(dev, args, kw=None):
+    args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
+    if kw is None:
+        return args
+    return args, {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+
+
 def _clouds(seed, n_ref, n_q, extent=10.0, invalid=0.2):
     rng = np.random.default_rng(seed)
     ref = torch.as_tensor(rng.uniform(-extent, extent, (n_ref, 3)), dtype=torch.float32)
     q = torch.as_tensor(rng.uniform(-extent, extent, (n_q, 3)), dtype=torch.float32)
     return (ref, torch.as_tensor(rng.uniform(size=n_ref) > invalid), q,
             torch.as_tensor(rng.uniform(size=n_q) > invalid))
-
-
-def _cmp_packed(pk, pk_ref):
-    np.testing.assert_array_equal(pk[12:15], pk_ref[12:15])  # w, tidx, run starts
-    np.testing.assert_array_equal(pk[0:3], pk_ref[0:3])  # xs
-    np.testing.assert_allclose(pk[15], pk_ref[15], atol=1e-6)  # 1/count at valid ends
-    sel = np.abs(pk_ref[6:12]).sum(axis=0) > 0
-    np.testing.assert_allclose(pk[3:6, sel], pk_ref[3:6, sel], atol=2e-4)
-    scale = np.abs(pk_ref[6:12, sel]).max()
-    np.testing.assert_allclose(pk[6:12, sel], pk_ref[6:12, sel], atol=0.02 * scale)
 
 
 @pytest.mark.parametrize("giant_cell", [False, True])
@@ -164,17 +198,25 @@ def test_k3_piece_cut_gives_cell_errors(case, chunk):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("giant_cell", [False, True])
-def test_k1_k3_match_plain_on_card(giant_cell):
+@pytest.mark.parametrize("case", K1_CASES)
+def test_k1_k3_match_plain_on_card(case):
+    """K1 against its plain version at K1's tolerances (with the positions
+    of its runs longer than a chunk counted as a count over the sorted
+    keys gives them), the rows it feeds K2 and K3 against theirs."""
     require_cuda()
     dev = torch.device("cuda")
-    args, dtabs, tabs = _problem(3, giant_cell=giant_cell)
-    args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
+    args, _, dtabs, tabs = _k1_problem(case, 3)
+    args = _on(dev, args)
     before = dict(cuda_lib.LAUNCHES)
-    pk, nv, nr = fr.build_packed(*args)
+    acc = torch.zeros((), dtype=torch.int64, device=dev)
+    with fr.long_positions_into(acc):
+        pk, nv, nr = fr.build_packed(*args)
     pk_r, nv_r, nr_r = fr.build_packed_ref(*args)
     assert int(nv) == int(nv_r) and int(nr) == int(nr_r)
-    _cmp_packed(nn(pk), nn(pk_r))
+    torch_k1.cmp_packed(nn(pk), nn(pk_r))
+    assert int(acc) == torch_k1.long_positions(args, {})
+    if case == "giant_chunks":
+        assert torch_k1.longest_valid_run(nn(pk)) > 8 * fr.K1_CHUNK
     dtabs, tabs = dtabs.to(dev), tabs.to(dev)
     h = nn(fr.gn_system(args[-1], dtabs, pk))
     h_r = nn(fr.gn_system_ref(args[-1], dtabs, pk, include_mean_term=False))
@@ -187,20 +229,23 @@ def test_k1_k3_match_plain_on_card(giant_cell):
 def _rows12_args(seed, layout, giant_cell, dev=None):
     """build_packed's arguments and keywords for K1's 12-row layout: world
     points offset from the table's (so a build that read the table would
-    differ), observation weights uniform in [0.5, 2] and a split channel;
-    layout "weights+tab" (weights select the 12-row layout although a
-    table is given), "weights" or "no_tab" (no table, no weights)."""
-    args, _, _ = _problem(seed, giant_cell=giant_cell)
+    differ), observation weights uniform in [0.5, 2] and a split channel
+    (none where it would cut a K1_LONG case's long cell); layout
+    "weights+tab" (weights select the 12-row layout although a table is
+    given), "weights" or "no_tab" (no table, no weights).  giant_cell: a
+    K1_CASES entry."""
+    args = _k1_problem(giant_cell, seed)[0]
     rng = np.random.default_rng(seed + 100)
     n = args[0].shape[0]
     world = args[0] + torch.as_tensor(0.01 * rng.standard_normal((n, 3)), dtype=torch.float32)
     obs = torch.as_tensor(rng.uniform(0.5, 2.0, size=n), dtype=torch.float32)
     split = torch.as_tensor(rng.integers(0, 4, size=n), dtype=torch.int32)
+    if giant_cell in ("giant_chunks", "boundary"):
+        split = None
     args = (world,) + args[1:7] + ((args[7],) if layout == "weights+tab" else (None,))
     kw = dict(split_ids=split, obs_weight=None if layout == "no_tab" else obs)
     if dev is not None:
-        args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
-        kw = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+        args, kw = _on(dev, args, kw)
     return args, kw
 
 
@@ -218,24 +263,27 @@ def test_rows12_wrapper_takes_plain_version_on_cpu():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("layout", ["weights+tab", "weights", "no_tab"])
-@pytest.mark.parametrize("giant_cell", [False, True])
+@pytest.mark.parametrize("giant_cell", K1_CASES)
 def test_k1_rows12_matches_plain_on_card(giant_cell, layout):
     """K1's 12-row layout against its plain version at K1's tolerances,
     bit for bit from one call to the next, counted as a launch of K1 and a
-    12-row branch each; the rows it feeds give K3's errors within 2e-4."""
+    12-row branch each, its long-run positions as the sorted keys count
+    them; the rows it feeds give K3's errors within 2e-4."""
     require_cuda()
     dev = torch.device("cuda")
     args, kw = _rows12_args(9, layout, giant_cell, dev)
     before, b12 = cuda_lib.LAUNCHES["build_packed"], cuda_lib.BRANCHES["build_rows12"]
-    a, again = fr.build_packed(*args, **kw), fr.build_packed(*args, **kw)
+    acc = torch.zeros((), dtype=torch.int64, device=dev)
+    with fr.long_positions_into(acc):
+        a, again = fr.build_packed(*args, **kw), fr.build_packed(*args, **kw)
     assert all(torch.equal(x, y) for x, y in zip(a, again))
     assert cuda_lib.LAUNCHES["build_packed"] == before + 2 and cuda_lib.BRANCHES["build_rows12"] == b12 + 2
+    assert int(acc) == 2 * torch_k1.long_positions(args, kw)
     pk, nv, nr = a
     pk_r, nv_r, nr_r = fr.build_packed_ref(*args, **kw)
     assert int(nv) == int(nv_r) and int(nr) == int(nr_r)
-    _cmp_packed(nn(pk), nn(pk_r))
-    _, _, tabs = _problem(9, giant_cell=giant_cell)
-    tabs = tabs.to(dev)
+    torch_k1.cmp_packed(nn(pk), nn(pk_r))
+    tabs = _k1_problem(giant_cell, 9)[3].to(dev)
     np.testing.assert_allclose(nn(fr.cand_errors(tabs, pk)), nn(fr.cand_errors_ref(tabs, pk_r)), rtol=2e-4)
 
 
@@ -452,14 +500,13 @@ def test_k1_keys_bitwise_on_voxel_boundaries(grid_kind):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("giant_cell", [False, True])
+@pytest.mark.parametrize("giant_cell", K1_CASES)
 def test_k1_k2_bitwise_repeatable_on_card(giant_cell):
     """Two calls with the same inputs give bit-identical packed rows, counts
     and Hext (no float atomics), at a small and a large P."""
     require_cuda()
     dev = torch.device("cuda")
-    args, dtabs, _ = _problem(5, giant_cell=giant_cell)
-    args = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
+    args = _on(dev, _k1_problem(giant_cell, 5)[0])
     a, b = fr.build_packed(*args), fr.build_packed(*args)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
@@ -468,6 +515,29 @@ def test_k1_k2_bitwise_repeatable_on_card(giant_cell):
         dt = torch.as_tensor(np.random.default_rng(p_dim).standard_normal((p_dim,) + tuple(tab.shape)),
                              dtype=torch.float32, device=dev)
         assert torch.equal(fr.gn_system(tab, dt, pk), fr.gn_system(tab, dt, pk)), p_dim
+
+
+# sha256 of K1's (packed, nvalid, num_raw) on an H100 for torch_k1.short_case(4),
+# recorded from the one-warp-per-run build that preceded the chunk cut: a
+# problem whose runs all fit in one chunk keeps those bits
+K1_SHORT_DIGESTS = {
+    "compact": "215491c0cbab85a0fcac77b3d94714ab238cba60722e9e960574a66f629816cf",
+    "rows12": "60463ca60235be11e4e3cba2f88d239fe28e979e11af79d525f3f542528f5354",
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(K1_SHORT_DIGESTS))
+def test_k1_short_runs_keep_their_bits_on_card(layout):
+    """Runs within one chunk are summed, finished and written as before the
+    chunk cut: the same bits, pinned by a digest."""
+    require_cuda()
+    args, kw = _on(torch.device("cuda"), *torch_k1.short_case(4, layout=layout))
+    assert torch_k1.long_positions(args, kw) == 0
+    h = hashlib.sha256()
+    for t in fr.build_packed(*args, **kw):
+        h.update(nn(t).tobytes())
+    assert h.hexdigest() == K1_SHORT_DIGESTS[layout]
 
 
 @pytest.mark.gpu

@@ -7,7 +7,8 @@ fused step records them.
   - a short CPU FusedDmsaSlam run (tests/test_torch_fused.py's small
     configuration, copied here so that this file imports no jax, at fewer
     iterations) fills every span and counter of the fused step and its
-    Gauss-Newton loops, nested as the step runs them;
+    Gauss-Newton loops, nested as the step runs them, and each solve's
+    device counter of K1's long-run positions sums its K1 calls';
   - a step replayed without Metrics gives the recorded step's state bit for
     bit: the spans change nothing the step computes.
 """
@@ -19,6 +20,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from dmsa_lidar_slam_tpu_torch.config import Config
 from dmsa_lidar_slam_tpu_torch.io.synthetic import SyntheticSequence
+from dmsa_lidar_slam_tpu_torch.ops import fused_residuals as tfr
+from dmsa_lidar_slam_tpu_torch.ops import voxel
 from dmsa_lidar_slam_tpu_torch.pipeline import fused as tfused
 from dmsa_lidar_slam_tpu_torch.pipeline import metrics as pm
 
@@ -126,19 +129,34 @@ def test_record_function_only_while_a_profiler_records(monkeypatch):
 @pytest.fixture(scope="module")
 def fused_run():
     """A short CPU run; records the last dispatched step's inputs and
-    output, and the iterations each solve's optimize returned, by name."""
+    output, the iterations each solve's optimize returned, by name, and
+    each K1 call's positions in runs longer than one chunk, by solve,
+    counted from its sorted voxel keys."""
     from dmsa_lidar_slam_tpu_torch.dmsa import optimizer as topt
 
     slam = tfused.FusedDmsaSlam(_config(), flush_every=8, device="cpu")
     step = slam.step
     last = {}
     returned = {"window": [], "submap": []}
-    optimize = topt.optimize
+    k1_long = {"window": [], "submap": []}
+    solving = []
+    optimize, build_packed = topt.optimize, tfr.build_packed
 
     def recording_optimize(*args, **kwargs):
-        out = optimize(*args, **kwargs)
+        solving.append(kwargs["name"])
+        try:
+            out = optimize(*args, **kwargs)
+        finally:
+            solving.pop()
         returned[kwargs["name"]].append(int(out.num_iters))
         return out
+
+    def recording_build(points_w, mask, ring_ids, xs, tidx, grid_size, min_points, tab=None, split_ids=None,
+                        obs_weight=None):
+        key = voxel.combined_key(*voxel.voxel_keys(points_w, mask, grid_size, channel=split_ids))
+        _, counts = torch.unique_consecutive(torch.sort(key, stable=True)[0], return_counts=True)
+        k1_long[solving[-1]].append(int(counts[counts > tfr.K1_CHUNK].sum()))
+        return build_packed(points_w, mask, ring_ids, xs, tidx, grid_size, min_points, tab, split_ids, obs_weight)
 
     def recording_step(state, pack, aux, prio):
         out = step(state, pack, aux, prio)
@@ -150,6 +168,7 @@ def fused_run():
     cursor = seq.t_start - 0.2
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(topt, "optimize", recording_optimize)
+        mp.setattr(tfr, "build_packed", recording_build)
         for i in range(N_SCANS):
             t_end = seq.t_start + (i + 1) * seq.sweep
             ts, acc, gyr = seq.imu_samples(cursor, t_end)
@@ -157,6 +176,7 @@ def fused_run():
             cursor = t_end
             slam.process_scan(*seq.scan(i, PTS))
     slam.returned_iters = returned
+    slam.k1_long = k1_long
     return slam, slam.metrics.summary(), last
 
 
@@ -184,6 +204,31 @@ def test_run_fills_every_span_and_counter(fused_run):
     # the event rows' submap spans (column 7 of the keyframe rows) sum to the counter
     ev = slam.state.events[: int(slam.state.ev_index)]
     assert int(ev[ev[:, 0] == tfused.EV_KEYFRAME, 7].sum()) == s["submap.span"]["count"]
+
+
+def test_k1_long_positions_sum_each_solves_k1_calls(fused_run):
+    """<name>.gn.k1_long_positions, a counter on the solve's device, is the
+    sum over the solve's K1 calls (two an iteration) of the positions in
+    runs longer than K1_CHUNK; the window's masked run is one of them."""
+    slam, s, _ = fused_run
+    for name in ("window", "submap"):
+        calls = slam.k1_long[name]
+        assert len(calls) == 2 * s[f"{name}.gn.iters"]["count"], name
+        assert s[f"{name}.gn.k1_long_positions"] == {"count": sum(calls)}, name
+    assert s["window.gn.k1_long_positions"]["count"] > 0
+    assert set(slam.metrics.device_counters) == {"window.gn.k1_long_positions", "submap.gn.k1_long_positions"}
+
+
+def test_device_counters_read_in_the_summary_and_reset():
+    m = pm.Metrics()
+    a = m.device_counter("a", "cpu")
+    a += 3
+    assert m.device_counter("a", "cpu") is a
+    m.count("b", 2)
+    assert m.summary() == {"a": {"count": 3}, "b": {"count": 2}}
+    m.reset_stages()
+    assert m.summary() == {}
+    assert int(m.device_counter("a", "cpu")) == 0
 
 
 def test_submap_solve_spans_nest_under_keyframe_submap(fused_run):

@@ -8,8 +8,10 @@ chip_smoke.py's shapes, for this checkout or another one.
 
 The inputs are chip_smoke.py's scene problems (the same seeds): K1 at n =
 28,672 and 409,600 (the grid 1.5 m as the optimizer passes it, an f32
-scalar on the card) and at n = 28,672 with the window's real masked share
-(chip_smoke.WINDOW_MASKED_SHARE), K2 at P = 30 over the window's packed
+scalar on the card), at n = 28,672 with the window's real masked share
+(chip_smoke.WINDOW_MASKED_SHARE), at the long configuration's submap (n =
+196,608, LONG_SUBMAP_MASKED_SHARE) and at the submap view of a span-4
+solve (44 of 48 keyframes masked; the compact and the 12-row layout), K2 at P = 30 over the window's packed
 rows and P = 594 over the 100-keyframe ring's, K3 at K = 15 over each of
 the three packed inputs, K4 at chip_smoke's two static-point queries, K5 at
 chip_smoke's 4,096-point keyframe cloud (rho = 0.8 m) with the radius as a
@@ -98,6 +100,28 @@ def main(argv=None):
         if n == 28672 and masked == 0.05:
             key = voxel.combined_key(*voxel.voxel_keys(pts, mask, grids[1]))
             rows.append(("torch.sort", f"K1 keys n={n}", lambda k=key: torch.sort(k, stable=True), 10))
+    # K1 at the long configuration's submap (random masked share) and at the
+    # submap view a span-4 solve sees (44 of 48 keyframes masked, both
+    # layouts), chip_smoke's long_rows / submap_view_rows inputs, the
+    # coarser grid
+    s, ppk = smoke.LONG_SUBMAP_SHAPE
+    n = s * ppk
+    g = 2.5 * torch.tensor(0.4, dtype=torch.float32, device=dev)
+    lrng = np.random.default_rng(smoke.LONG_SEED)
+    long_in = smoke._scene_problem(lrng, n, s + 1, dev, smoke.LONG_SUBMAP_MASKED_SHARE)
+    lsplit = torch.as_tensor(lrng.integers(0, 6, size=n), dtype=torch.int32, device=dev)
+    k1_long = (*long_in[:5], g, 10, long_in[5], lsplit)
+    rows.append(("build_packed", f"n={n} long submap, masked={smoke.LONG_SUBMAP_MASKED_SHARE}",
+                 lambda a=k1_long: fr.build_packed(*a), 10))
+    srng = np.random.default_rng(smoke.SUBMAP_VIEW_SEED)
+    pts, mask, rings, xs, ti, tab, split = smoke._scene_problem(srng, n, s + 1, dev, 0.05, with_split=True,
+                                                                 tidx=np.repeat(np.arange(s), ppk))
+    mask &= ti >= s - smoke.SUBMAP_VIEW_ACTIVE
+    obs = torch.as_tensor(srng.uniform(0.5, 2.0, size=n), dtype=torch.float32, device=dev)
+    label = f"n={n} submap view, {s - smoke.SUBMAP_VIEW_ACTIVE} of {s} keyframes masked"
+    k1_view = (pts, mask, rings, xs, ti, g, 10, tab, split)
+    rows.append(("build_packed", label, lambda a=k1_view: fr.build_packed(*a), 10))
+    rows.append(("build_packed", label + ", 12-row, weights", lambda a=k1_view: fr.build_packed(*a, obs), 10))
     for n, p_dim in ((28672, 30), (409600, 594)):
         packed, tab = packs[n, 0.05]
         dtabs = 0.1 * torch.randn(p_dim, tab.shape[0], 8, device=dev,
